@@ -10,19 +10,25 @@ Phases, each of which fails the run (non-zero exit) on any fault:
 2. build every CUDA kernel from dgod_tpu_torch/csrc (one nvcc per source,
    all at once);
 3. hold each kernel against its plain PyTorch version on the card at the
-   main path's shapes (K1 RoIAlign forward, K2 its backward, K3 the RPN IoU
-   matcher), timing both with CUDA events; then run a small float32 model
-   on the card and on the CPU with the same weights, batch and random draws
-   and require the same losses;
+   main paths' shapes (K1 RoIAlign forward, K2 its backward, K3 the RPN IoU
+   matcher, K4 the FCOS centre-sampling matcher, K6 first-k greedy NMS at
+   both predicts' shapes), timing both with CUDA events; then run a small
+   float32 model of each family on the card and on the CPU with the same
+   weights, batch and random draws and require the same losses;
 4. train: the full-width DG Faster R-CNN (ResNet-50 (3,4,6,3), 608x1216,
    default FRCNNConfig, 3 domains, bf16, batch 8, random weights from a
-   seed) runs one DG cycle of fused pairs (0,1), (0,2), (0,3), (0,4) under
+   seed) runs two DG cycles of fused pairs (0,1), (0,2), (0,3), (0,4) under
    SGD(2e-3, wd 5e-4): every loss finite, each pair moves only the
    parameter groups its modes activate;
 5. predict: the eval step on one batch, shapes and finiteness checked;
-6. the kernels' launch counts over phases 4-5 (counts are reset just
-   before phase 4): every kernel of the path must have run, and K2 must not
-   run in mode 2's frozen half.
+6. the same two phases for the full-width DG FCOS (P3..P7, 9 classes,
+   3 domains, bf16, batch 8) under Adam(1e-4, wd 1e-4);
+7. the kernels' launch counts: each family's path is driven with every
+   count set to 0 just before it and read just after. Every pair and every
+   predict must launch exactly the kernels its family runs (K2 not in mode
+   2's frozen half, K4 not in FCOS mode 1, K6 once per predict), and every
+   kernel must have run on some path; K3, K4 and K6 are held against their
+   plain versions once more on the last inputs the path gave them.
 
 Output: one line per phase, then the card's name and power limit, then one
 JSON line {"kernels": [...]} (times, launches, errors and bounds), and last
@@ -248,6 +254,175 @@ def check_iou_match(dev, anchors, report):
                         ops=2 * n_pairs * 20)
 
 
+def fcos_match_gt(rng: np.random.RandomState, anchors: np.ndarray, counts):
+    """GT [B,G,4], valid [B,G] for K4's check: image 0 has no valid gt and
+    junk in its padding; image 1 all G valid; image 2 pairs of gt around
+    shared anchors whose areas differ by less than 8 px^2 (and exact
+    duplicates); image 3 gt whose largest distance to an anchor's centre
+    lies exactly on its level's lower or upper bound; the rest ordinary gt,
+    some equal to anchors, with junk in the padding."""
+    H, W = CANVAS
+    starts = np.cumsum((0,) + tuple(counts))
+    gt = rng.uniform(-1e4, 1e4, (B, G, 4)).astype(np.float32)  # junk
+    valid = np.zeros((B, G), bool)
+
+    def ordinary(n):
+        xy = rng.uniform([-20, -20], [W, H], (n, 2))
+        wh = np.exp(rng.uniform(np.log(4), np.log(900), (n, 2)))
+        return np.concatenate([xy, xy + wh], 1)
+
+    gt[1] = ordinary(G)
+    valid[1] = True
+    pairs = []
+    for _ in range(G // 2):  # near-tie pairs
+        c = anchors[rng.randint(len(anchors))]
+        cx, cy = 0.5 * (c[0] + c[2]), 0.5 * (c[1] + c[3])
+        w, h = rng.uniform(40, 500, 2)
+        a = np.array([cx - w * rng.uniform(0.2, 0.8), cy - h * rng.uniform(
+            0.2, 0.8), 0, 0], np.float64)
+        a[2:] = a[:2] + (w, h)
+        e = rng.choice([0.0, 1.0, 2.0, 3.0, 4.0, 5.0, 7.0, 7.9])
+        twin = a.copy()
+        twin[2] += e / h  # the area grows by ~e px^2
+        pairs += [a, twin] if rng.rand() < 0.5 else [twin, a]
+    gt[2] = np.array(pairs[:G], np.float32)
+    valid[2] = True
+    bounds = []
+    for lvl in range(len(counts)):  # largest distance == lower or upper
+        for _ in range(G // (2 * len(counts))):
+            c = anchors[rng.randint(starts[lvl], starts[lvl + 1])]
+            s = c[2] - c[0]
+            cx, cy = 0.5 * (c[0] + c[2]), 0.5 * (c[1] + c[3])
+            bounds.append([cx - 4 * s, cy - 2 * s, cx + 2 * s, cy + 2 * s])
+            bounds.append([cx - 2 * s, cy - 2 * s, cx + 2 * s, cy + 8 * s]
+                          if rng.rand() < 0.5 else
+                          [cx - 8 * s, cy - 2 * s, cx + 6 * s, cy + 2 * s])
+    n = min(G, len(bounds))
+    gt[3, :n] = np.array(bounds[:n], np.float32)
+    valid[3, :n] = True
+    for b, n in zip(range(4, B), (1, 7, 30, 100)):
+        gt[b, :n] = ordinary(n)
+        gt[b, 0] = anchors[rng.randint(len(anchors))]  # a gt equal to an anchor
+        valid[b, :n] = True
+    return gt, valid
+
+
+def check_fcos_match(dev, report):
+    from dgod_tpu_torch.models.fcos import fcos_anchors_for
+    from dgod_tpu_torch.ops import cuda_matchers as K
+    from dgod_tpu_torch.ops.matchers import fcos_match
+
+    anchors_np, counts = fcos_anchors_for(CANVAS)
+    R = anchors_np.shape[0]
+    gt, valid = fcos_match_gt(np.random.RandomState(11), anchors_np, counts)
+    anchors = torch.from_numpy(anchors_np).to(dev)
+    gt_t = torch.from_numpy(gt).to(dev)
+    valid_t = torch.from_numpy(valid).to(dev)
+    max_diff = 0
+    for exact in (False, True):
+        ref = fcos_match(anchors, gt_t, valid_t, counts, 1.5, exact)
+        got = K.fcos_match_cuda(anchors, gt_t, valid_t, counts, 1.5, exact)
+        torch.cuda.synchronize()
+        n_diff = int((ref != got).sum())
+        max_diff = max(max_diff, int((ref.long() - got.long()).abs().max()))
+        fg = (got >= 0).sum(1).tolist()
+        print(f"K4 fcos_match exact_reference_area={exact}: {n_diff} codes "
+              f"differ of {B * R}; fg per image {fg}")
+        if n_diff:
+            fail(f"K4 codes differ from the plain version (exact={exact})")
+        if not bool((got[0] == -1).all()):
+            fail("K4: an image with no valid GT must match nothing")
+        if not all(fg[1:]):
+            fail("K4: every image with gt must match some location")
+    ms = cuda_time_ms(lambda: K.fcos_match_cuda(anchors, gt_t, valid_t,
+                                                counts))
+    plain = cuda_time_ms(lambda: fcos_match(anchors, gt_t, valid_t, counts),
+                         iters=3)
+    print(f"K4 {ms:.3f} ms (plain {plain:.3f}) at B={B} G={G} R={R}")
+    report["K4"] = dict(ms=ms, plain_ms=plain, max_abs_err=max_diff,
+                        bytes=B * G * 17 + R * 16 + B * R * 4,
+                        ops=25 * R * int(valid.sum()))
+
+
+def nms_candidates(rng: np.random.RandomState, K: int):
+    """Per-class candidates of one predict, B rows of K: boxes clustered
+    around a few objects (heavy overlap), labels 1..8, scores quantised to
+    1/64 (many ties), ~20% invalid; row 1 keeps only 30 valid entries
+    (fewer than k survivors), row 2 none."""
+    H, W = CANVAS
+    centres = rng.uniform([0, 0], [W, H], (B, 40, 2))
+    pick = rng.randint(0, 40, (B, K))
+    ctr = np.take_along_axis(centres, pick[..., None], 1) + rng.randn(
+        B, K, 2) * 12
+    wh = np.exp(rng.uniform(np.log(8), np.log(400), (B, K, 2)))
+    boxes = np.concatenate([ctr - wh / 2, ctr + wh / 2], -1)
+    boxes = np.clip(boxes, 0, [W, H, W, H]).astype(np.float32)
+    scores = (np.floor(rng.rand(B, K) * 64) / 64).astype(np.float32)
+    labels = rng.randint(1, 9, (B, K))
+    valid = rng.rand(B, K) > 0.2
+    valid[1] = False
+    valid[1, rng.choice(K, 30, replace=False)] = True
+    valid[2] = False
+    return boxes, scores, labels, valid
+
+
+def nms_live_work(boxes, valid, scores, idx, ok, thr):
+    """Live entries summed over the greedy rounds that picked something:
+    the work this run's data needs (an entry is live in round r until the
+    pick of some round <= r suppresses it)."""
+    from dgod_tpu_torch.ops.boxes import elementwise_iou
+
+    picks = torch.gather(boxes, 1, idx[..., None].expand(-1, -1, 4))
+    iou = elementwise_iou(picks[:, :, None, :], boxes[:, None, :, :])
+    ar = torch.arange(boxes.shape[1], device=boxes.device)
+    kill = ((iou > thr) | (ar[None, None] == idx[..., None])) & ok[..., None]
+    k = idx.shape[1]
+    rounds = torch.arange(k, device=boxes.device)[None, :, None]
+    first = torch.where(kill, rounds, k).min(1).values  # [B, K]
+    n_rounds = ok.sum(1, keepdim=True)
+    live = valid & (scores > float("-inf"))
+    return int((torch.minimum(first + 1, n_rounds) * live).sum())
+
+
+def check_nms_topk(dev, report):
+    from dgod_tpu_torch.ops import cuda_nms as K
+    from dgod_tpu_torch.ops.nms import _class_offsets, nms_topk_plain
+
+    rng = np.random.RandomState(12)
+    max_diff = 0
+    times = {}
+    # FRCNN predict: 1000 proposals x 9 classes at IoU 0.5; FCOS predict:
+    # 1000 candidates on each of P3..P6 and 450 on P7 at IoU 0.6
+    for K_, thr in ((9000, 0.5), (4450, 0.6)):
+        boxes, scores, labels, valid = (torch.from_numpy(a).to(dev) for a in
+                                        nms_candidates(rng, K_))
+        off = _class_offsets(boxes, labels).contiguous()
+        ref_idx, ref_ok, _ = nms_topk_plain(off, scores, valid, thr, 100)
+        idx, ok = K.nms_topk_cuda(off, scores, valid, thr, 100)
+        torch.cuda.synchronize()
+        n_idx = int((idx != ref_idx).sum())
+        n_ok = int((ok != ref_ok).sum())
+        max_diff = max(max_diff, int((idx - ref_idx).abs().max()), n_ok)
+        print(f"K6 nms_topk K={K_} iou={thr}: {n_idx} idx and {n_ok} ok "
+              f"differ of {B * 100}; picks per image {ok.sum(1).tolist()}")
+        if n_idx or n_ok:
+            fail(f"K6 disagrees with its plain version (K={K_})")
+        if bool(ok[2].any()) or int(ok[1].sum()) > 30 or not bool(ok[0].all()):
+            fail("K6: wrong number of picks on the edge-case rows")
+        ms = cuda_time_ms(lambda: K.nms_topk_cuda(off, scores, valid, thr,
+                                                  100))
+        plain = cuda_time_ms(lambda: nms_topk_plain(off, scores, valid, thr,
+                                                    100), iters=3)
+        times[K_] = (ms, plain)
+        print(f"K6 {ms:.3f} ms (plain {plain:.3f}) at B={B} K={K_} k=100")
+        if K_ == 9000:  # the bound at the larger (FRCNN) shape
+            work = nms_live_work(off, valid, scores, idx, ok, thr)
+            report["K6"] = dict(ms=ms, plain_ms=plain,
+                                bytes=B * K_ * 21 + B * 100 * 9,
+                                ops=20 * work)
+    report["K6"]["max_abs_err"] = max_diff
+
+
 def synthetic_batch(rng: np.random.RandomState, b: int, canvas, num_domains):
     H, W = canvas
     boxes = np.zeros((b, G, 4), np.float32)
@@ -271,33 +446,37 @@ def synthetic_batch(rng: np.random.RandomState, b: int, canvas, num_domains):
     }
 
 
-def check_small_model_card_vs_cpu(dev):
+def check_small_model_card_vs_cpu(dev, family):
     """A small float32 model on the card (kernels) and on the CPU (plain
     versions), same weights, batch and draws: the losses must agree."""
+    from dgod_tpu_torch.models.dg_fcos import DGFCOSModel
     from dgod_tpu_torch.models.dg_frcnn import DGFRCNNModel, Draws, batch_to_torch
     from dgod_tpu_torch.models.faster_rcnn import FRCNNConfig
 
-    cfg = FRCNNConfig(rpn_pre_nms_train=256, rpn_pre_nms_test=256,
-                      rpn_post_nms_train=256, rpn_post_nms_test=256,
-                      rpn_batch_per_image=64, box_batch_per_image=64)
     canvas = (128, 256)
-    kw = dict(num_domains=2, canvas=canvas, config=cfg, seed=3,
+    kw = dict(num_domains=2, canvas=canvas, seed=3,
               compute_dtype=torch.float32, backbone_block_counts=(1, 1, 1, 1))
-    cpu_model = DGFRCNNModel(device="cpu", **kw)
-    gpu_model = DGFRCNNModel(device=dev, **kw)
+    if family == "FRCNN":
+        kw["config"] = FRCNNConfig(
+            rpn_pre_nms_train=256, rpn_pre_nms_test=256,
+            rpn_post_nms_train=256, rpn_post_nms_test=256,
+            rpn_batch_per_image=64, box_batch_per_image=64)
+    cls = DGFRCNNModel if family == "FRCNN" else DGFCOSModel
+    cpu_model = cls(device="cpu", **kw)
+    gpu_model = cls(device=dev, **kw)
     batch = synthetic_batch(np.random.RandomState(2), 2, canvas, 2)
     draws = cpu_model.make_draws(2, G, torch.Generator().manual_seed(4))
+    gpu_draws = None if draws is None else Draws(
+        *[None if t is None else t.to(dev) for t in draws])
     for mode in range(5):
         l_cpu, _ = cpu_model.loss_for_mode(batch_to_torch(batch, "cpu"), draws,
                                            mode, REG_WEIGHTS)
-        l_gpu, _ = gpu_model.loss_for_mode(
-            batch_to_torch(batch, dev),
-            Draws(*[None if t is None else t.to(dev) for t in draws]),
-            mode, REG_WEIGHTS)
+        l_gpu, _ = gpu_model.loss_for_mode(batch_to_torch(batch, dev),
+                                           gpu_draws, mode, REG_WEIGHTS)
         a, b = float(l_cpu.detach()), float(l_gpu.detach())
-        print(f"small model mode {mode}: loss cpu {a:.6f} card {b:.6f}")
+        print(f"small {family} mode {mode}: loss cpu {a:.6f} card {b:.6f}")
         if not np.isfinite(b) or abs(a - b) > 1e-3 * max(1.0, abs(a)):
-            fail(f"small model: card and CPU losses differ in mode {mode}")
+            fail(f"small {family}: card and CPU losses differ in mode {mode}")
 
 
 def calibrate_frozen_bn(model, images):
@@ -335,14 +514,18 @@ def changed_groups(model, labels, before):
     return changed
 
 
-def build_main_path(dev):
-    """The full-width model of phases 4-5 with its batch, fused pair steps
-    (in the DG schedule's order) and eval step."""
+def build_main_path(dev, family: str = "FRCNN"):
+    """The full-width model of one family (phases 4-6) with its batch,
+    optimizer state, fused pair steps (in the DG schedule's order) and eval
+    step."""
+    from dgod_tpu_torch.models.dg_fcos import DGFCOSModel
     from dgod_tpu_torch.models.dg_frcnn import DGFRCNNModel, batch_to_torch
     from dgod_tpu_torch.train import steps as S
+    from dgod_tpu_torch.train.optim import init_opt_state
 
-    model = DGFRCNNModel(num_classes=9, num_domains=3, canvas=CANVAS,
-                         compute_dtype=torch.bfloat16, device=dev, seed=0)
+    cls = {"FRCNN": DGFRCNNModel, "FCOS": DGFCOSModel}[family]
+    model = cls(num_classes=9, num_domains=3, canvas=CANVAS,
+                compute_dtype=torch.bfloat16, device=dev, seed=0)
     batch = batch_to_torch(synthetic_batch(np.random.RandomState(5), B,
                                            CANVAS, 3), dev)
     calibrate_frozen_bn(model, batch["image"])
@@ -353,9 +536,10 @@ def build_main_path(dev):
         if m0 != 0:
             fail("the DG schedule must alternate mode 0 with mode k")
         pairs.append(mk)
-    opt_config, lr = S.make_optimizer("FRCNN")
+    opt_config, lr = S.make_optimizer(family)
     return types.SimpleNamespace(
-        model=model, batch=batch, opt_state={},
+        model=model, batch=batch, opt_config=opt_config, lr=lr,
+        opt_state=init_opt_state(dict(model.named_parameters()), opt_config),
         gen=torch.Generator(device=dev).manual_seed(0),
         steps={k: S.make_pair_step(model, k, REG_WEIGHTS, opt_config, lr)
                for k in pairs},
@@ -388,80 +572,168 @@ def dg_cycle(path, before_pair=None, after_pair=None):
     return pair_ms, (time.perf_counter() - t) * 1e3, dets
 
 
-def run_main_path(dev):
-    """Phases 4-5: the full-width DG training cycle and a predict."""
-    from dgod_tpu_torch.ops import cuda_matchers, cuda_roi_align
+def reset_counts():
+    from dgod_tpu_torch.ops import cuda_matchers, cuda_nms, cuda_roi_align
+
+    cuda_roi_align.fwd_launches = 0
+    cuda_roi_align.bwd_launches = 0
+    cuda_matchers.launches = 0
+    cuda_matchers.fcos_launches = 0
+    cuda_nms.launches = 0
+
+
+def read_counts():
+    from dgod_tpu_torch.ops import cuda_matchers, cuda_nms, cuda_roi_align
+
+    return {"K1": cuda_roi_align.fwd_launches,
+            "K2": cuda_roi_align.bwd_launches,
+            "K3": cuda_matchers.launches,
+            "K4": cuda_matchers.fcos_launches,
+            "K6": cuda_nms.launches}
+
+
+def expected_launches(family: str, k=None):
+    """Kernel launches of pair (0,k), or of a predict when k is None."""
+    want = dict.fromkeys(("K1", "K2", "K3", "K4", "K6"), 0)
+    if k is None:  # predict: K1 pools the proposals, K6 runs the NMS
+        want.update(K1=1 if family == "FRCNN" else 0, K6=1)
+    elif family == "FRCNN":
+        # K2 runs in each half that backpropagates into the FPN: not in
+        # mode 2, whose detector is frozen
+        want.update(K1=2, K2=1 if k == 2 else 2, K3=1)
+    else:  # mode 0's loss and modes 2-4's gt_classes match; mode 1 does not
+        want.update(K4=1 if k == 1 else 2)
+    return want
+
+
+class LastCalls:
+    """While the main path runs, keep the arguments of the last call of
+    each exact-code kernel wrapper (K3, K4, K6), so that afterwards each
+    kernel can be held against its plain version on the path's own inputs.
+    The wrappers are called as before: each still counts its launch."""
+
+    def __init__(self):
+        from dgod_tpu_torch.ops import cuda_matchers, cuda_nms
+
+        self.targets = {"K3": (cuda_matchers, "iou_match_cuda"),
+                        "K4": (cuda_matchers, "fcos_match_cuda"),
+                        "K6": (cuda_nms, "nms_topk_cuda")}
+        self.originals = {kid: getattr(m, name)
+                          for kid, (m, name) in self.targets.items()}
+        self.args = {}
+
+    def __enter__(self):
+        for kid, (module, name) in self.targets.items():
+            def wrapped(*a, _kid=kid, **k):
+                self.args[_kid] = (a, k)
+                return self.originals[_kid](*a, **k)
+            setattr(module, name, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        for kid, (module, name) in self.targets.items():
+            setattr(module, name, self.originals[kid])
+
+    def check(self, family):
+        """Each recorded call again, kernel against plain version."""
+        from dgod_tpu_torch.ops.matchers import fcos_match, match_anchors_plain
+        from dgod_tpu_torch.ops.nms import nms_topk_plain
+
+        plain = {"K3": match_anchors_plain, "K4": fcos_match,
+                 "K6": nms_topk_plain}
+        for kid, (a, k) in sorted(self.args.items()):
+            got = self.originals[kid](*a, **k)
+            ref = plain[kid](*a, **k)
+            if kid == "K6":
+                ref, extra = ref[:2], f", {int(got[1].sum())} picks"
+            else:
+                got, ref = (got,), (ref,)
+                extra = f", {int((got[0] >= 0).sum())} matched"
+            n_diff = sum(int((x != y).sum()) for x, y in zip(got, ref))
+            print(f"{family} {kid} on the main path's last inputs: {n_diff} "
+                  f"outputs differ from the plain version{extra}")
+            if n_diff:
+                fail(f"{family}: {kid} disagrees with its plain version on "
+                     f"the main path's inputs")
+
+
+def run_main_path(dev, family: str):
+    """Phases 4-6 for one family: two full-width DG training cycles and
+    predicts, with the kernels' launches counted from 0."""
     from dgod_tpu_torch.train import steps as S
 
-    path = build_main_path(dev)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    path = build_main_path(dev, family)
     model = path.model
     labels = model.param_group_labels()
     n_params = sum(p.numel() for p in model.parameters())
-    print(f"model: {n_params} params, ResNet-50 (3,4,6,3), canvas {CANVAS}, "
-          f"batch {B}, bf16 compute")
-
-    def reset_counts():
-        cuda_roi_align.fwd_launches = 0
-        cuda_roi_align.bwd_launches = 0
-        cuda_matchers.launches = 0
-
-    def read_counts():
-        return {"K1": cuda_roi_align.fwd_launches,
-                "K2": cuda_roi_align.bwd_launches,
-                "K3": cuda_matchers.launches}
+    print(f"{family}: {n_params} params, ResNet-50 (3,4,6,3), canvas "
+          f"{CANVAS}, batch {B}, bf16 compute, {path.opt_config.kind} "
+          f"lr {path.lr} wd {path.opt_config.weight_decay}")
+    last = {}
 
     def before_pair(k):
         return snapshot(model), read_counts()
 
     def after_pair(k, metrics, state, ms):
         before, c0 = state
-        c1 = read_counts()
+        c1 = last["counts"] = read_counts()
         vals = {n: float(v) for n, v in metrics.items()}
         bad = [n for n, v in vals.items() if not np.isfinite(v)]
         if bad:
-            fail(f"pair (0,{k}): non-finite losses {bad}")
+            fail(f"{family} pair (0,{k}): non-finite losses {bad}")
         expect = set(S.MODE_ACTIVE_GROUPS[0]) | set(S.MODE_ACTIVE_GROUPS[k])
         got = changed_groups(model, labels, before)
         if got != expect:
-            fail(f"pair (0,{k}) moved groups {sorted(got)}, expected "
-                 f"{sorted(expect)}")
+            fail(f"{family} pair (0,{k}) moved groups {sorted(got)}, "
+                 f"expected {sorted(expect)}")
         delta = {n: c1[n] - c0[n] for n in c1}
-        # K2 runs in each half that backpropagates into the FPN: not in
-        # mode 2, whose detector is frozen
-        want = {"K1": 2, "K2": 1 if k == 2 else 2, "K3": 1}
+        want = expected_launches(family, k)
         if delta != want:
-            fail(f"pair (0,{k}) kernel launches {delta}, expected {want}")
+            fail(f"{family} pair (0,{k}) kernel launches {delta}, expected "
+                 f"{want}")
         print(f"  pair (0,{k}): {ms:.1f} ms, loss0 {vals['loss0']:.4f} "
               f"loss{k} {vals['loss']:.6f}, moved {sorted(got)}, "
               f"launches {delta}")
 
     torch.cuda.synchronize()
-    reset_counts()  # the main path starts here
+    reset_counts()  # the family's main path starts here
     # two DG cycles and two predicts: the first of each pays cuDNN's and
     # the allocator's warm-up, the second's times are reported
-    for cycle in range(2):
-        print(f"cycle {cycle}:")
-        pair_ms, pred_ms, dets = dg_cycle(path, before_pair, after_pair)
-    counts = read_counts()
+    with LastCalls() as last_calls:
+        for cycle in range(2):
+            print(f"{family} cycle {cycle}:")
+            pair_ms, pred_ms, dets = dg_cycle(path, before_pair, after_pair)
+            c = read_counts()
+            delta = {n: c[n] - last["counts"][n] for n in c}
+            if delta != expected_launches(family):
+                fail(f"{family} predict kernel launches {delta}, expected "
+                     f"{expected_launches(family)}")
+    counts = read_counts()  # and ends here
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    last_calls.check(family)
     shapes = {k: tuple(v.shape) for k, v in dets.items()}
     want_shapes = {"boxes": (B, 100, 4), "scores": (B, 100),
                    "labels": (B, 100), "valid": (B, 100)}
     if shapes != want_shapes:
-        fail(f"predict shapes {shapes}")
+        fail(f"{family} predict shapes {shapes}")
     if not (torch.isfinite(dets["boxes"]).all()
             and torch.isfinite(dets["scores"]).all()):
-        fail("predict: non-finite boxes or scores")
+        fail(f"{family} predict: non-finite boxes or scores")
     lab = dets["labels"][dets["valid"]]
-    n_cls = model.config.num_classes  # predictor columns 1..num_classes
+    # FRCNN: predictor columns 1..num_classes; FCOS: foreground ids 1..8
+    n_cls = 9 if family == "FRCNN" else 8
     if lab.numel() and not bool(((lab >= 1) & (lab <= n_cls)).all()):
-        fail(f"predict: labels outside 1..{n_cls}")
-    print(f"predict: {pred_ms:.1f} ms, {int(dets['valid'].sum())} detections")
-    for name, n in counts.items():
-        if n <= 0:
-            fail(f"{name} was not launched on the main path")
-    print(f"main path launches: {counts}; peak memory "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
-    return counts, pair_ms, pred_ms
+        fail(f"{family} predict: labels outside 1..{n_cls}")
+    print(f"{family} predict: {pred_ms:.1f} ms, {int(dets['valid'].sum())} "
+          f"detections, launches {delta}")
+    print(f"{family} main path launches: {counts}; peak memory {peak:.1f} GiB")
+    print(f"{family} pair steps ms: "
+          f"{json.dumps({f'(0,{k})': v for k, v in pair_ms.items()})}; "
+          f"predict ms: {pred_ms:.1f}")
+    del path, model, dets
+    return counts
 
 
 def main() -> int:
@@ -506,14 +778,19 @@ def main() -> int:
     report = {}
     check_roi_align(dev, report)
     check_iou_match(dev, anchors, report)
-    check_small_model_card_vs_cpu(dev)
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
+    check_fcos_match(dev, report)
+    check_nms_topk(dev, report)
+    for family in ("FRCNN", "FCOS"):
+        check_small_model_card_vs_cpu(dev, family)
 
-    # 4-6. the main path
-    counts, pair_ms, pred_ms = run_main_path(dev)
-    print(f"pair steps ms: {json.dumps({f'(0,{k})': v for k, v in pair_ms.items()})}; "
-          f"predict ms: {pred_ms:.1f}")
+    # 4-7. the main path of each family
+    counts = {}
+    for family in ("FRCNN", "FCOS"):
+        for kid, n in run_main_path(dev, family).items():
+            counts[kid] = counts.get(kid, 0) + n
+    for kid, n in counts.items():
+        if n <= 0:
+            fail(f"{kid} was not launched on any main path")
 
     meta = {
         "K1": ("roi_align_fwd", "dgod_tpu_torch/csrc/roi_align.cu",
@@ -522,6 +799,10 @@ def main() -> int:
                "dgod_tpu/ops/pallas_roi_align.py:472"),
         "K3": ("iou_match", "dgod_tpu_torch/csrc/iou_match.cu",
                "dgod_tpu/ops/pallas_matchers.py:94"),
+        "K4": ("fcos_match", "dgod_tpu_torch/csrc/fcos_match.cu",
+               "dgod_tpu/ops/pallas_matchers.py:202"),
+        "K6": ("nms_topk", "dgod_tpu_torch/csrc/nms_topk.cu",
+               "dgod_tpu/ops/pallas_nms.py:32"),
     }
     kernels = []
     for kid, (name, source, replaces) in meta.items():

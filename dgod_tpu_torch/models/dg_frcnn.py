@@ -212,16 +212,4 @@ class DGFRCNNModel(nn.Module):
     # -- optimizer groups --------------------------------------------------
 
     def param_group_labels(self) -> Dict[str, str]:
-        """Parameter name -> group: 'frozen' (stem and layer1 of the body),
-        'detector', 'image_da', 'ins_da', 'ins_cls', 'ins_cls_prime'.
-        (FrozenBatchNorm tensors are buffers, in no group.)"""
-        labels = {}
-        for name, _ in self.named_parameters():
-            keys = name.split(".")
-            group = keys[0]
-            if group == "detector" and "body" in keys:
-                rest = keys[keys.index("body") + 1:]
-                if rest[0] == "conv1" or rest[0].startswith("layer1_"):
-                    group = "frozen"
-            labels[name] = group
-        return labels
+        return dg_heads.param_group_labels(self)

@@ -1,23 +1,27 @@
-"""Domain-generalisation heads for Faster R-CNN (port of
+"""Domain-generalisation heads for Faster R-CNN and FCOS (port of
 dgod_tpu/models/dg_heads.py). All run in float32, also under a bf16 model.
 
 - `grad_reverse`: identity forward, backward multiplies by -alpha (0.1).
-- `ImageDAFPN`: image-level domain classifier on P2: 4 VALID convs with
-  strides (2,4)/4/4/3 -> 256 -> 128 -> D, sigmoid. Inputs smaller than the
-  608x1216 canvas's P2 are zero-padded up to the smallest size that still
-  reduces to 1x1.
-- `MLPHead` (`frcnn_instance_da`, `frcnn_ins_cls`): Dense stack with ReLU
-  where the reference has it, optional GRL, sigmoid output.
+- `ImageDAFPN` (FRCNN): image-level domain classifier on P2: 4 VALID convs
+  with strides (2,4)/4/4/3 -> 256 -> 128 -> D, sigmoid. Inputs smaller than
+  the 608x1216 canvas's P2 are zero-padded up to the smallest size that
+  still reduces to 1x1.
+- `ImageDA` (FCOS): the same on C5: VALID convs 2048 -> 1024 -> 512 -> 256
+  with strides (2,4)/2/2 -> 128 -> D, sigmoid; padded up to (19, 35).
+- `MLPHead` (`frcnn_instance_da`, `frcnn_ins_cls` on 1024-d RoI features;
+  `fcos_instance_da`, `fcos_ins_cls` on 256-d location features): Dense
+  stack with ReLU where the reference has it, optional GRL, sigmoid output.
 - `DomainBank`: one head per domain with stacked `[D, in, out]` weights;
   `gather` applies each image's own head, `all` every head to every image.
 
 The sigmoid outputs are what the DG losses feed to the softmax CE (the
-reference's quirk, kept).
+reference's quirk, kept). `param_group_labels` gives both DG models'
+optimizer groups.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Dict, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -81,6 +85,34 @@ class ImageDAFPN(nn.Module):
         return torch.sigmoid(self.linear2(x))
 
 
+class ImageDA(nn.Module):
+    """Image-level domain classifier over C5 (FCOS variant)."""
+
+    def __init__(self, num_domains: int):
+        super().__init__()
+        self.conv1 = Conv(2048, 1024, 3, stride=(2, 4))
+        self.conv2 = Conv(1024, 512, 3, stride=2)
+        self.conv3 = Conv(512, 256, 3, stride=2)
+        self.linear1 = Dense(256, 128)
+        self.linear2 = Dense(128, num_domains)
+
+    def reset_parameters(self, gen):
+        for c in (self.conv1, self.conv2, self.conv3):
+            init_normal(c.weight, 0.001, gen)
+        init_lecun_normal(self.linear1.weight, gen)
+        init_lecun_normal(self.linear2.weight, gen)
+
+    def forward(self, c5: torch.Tensor) -> torch.Tensor:
+        """c5 [B, H, W, 2048] (NHWC, as the JAX head) -> [B, D] sigmoid."""
+        x = pad_to_min(c5.float().permute(0, 3, 1, 2), (19, 35))
+        x = grad_reverse(x)
+        for conv in (self.conv1, self.conv2, self.conv3):
+            x = F.relu(conv(x))
+        x = x.permute(0, 2, 3, 1).flatten(1)  # HWC order, as Flax flattens
+        x = F.relu(self.linear1(x))
+        return torch.sigmoid(self.linear2(x))
+
+
 class MLPHead(nn.Module):
     """Dense stack (ReLU per `relu_mask`), optional GRL, sigmoid output."""
 
@@ -116,6 +148,16 @@ def frcnn_instance_da(num_domains: int, din: int = 1024) -> MLPHead:
 def frcnn_ins_cls(num_classes: int, prime: bool, din: int = 1024) -> MLPHead:
     # 1024 -> 512 (relu) -> 256 (no relu) -> C; prime adds the GRL
     return MLPHead(din, (512, 256, num_classes), (True, False, False), prime)
+
+
+def fcos_instance_da(num_domains: int, din: int = 256) -> MLPHead:
+    # 256 -> 128 (relu) -> D, GRL
+    return MLPHead(din, (128, num_domains), (True, False), True)
+
+
+def fcos_ins_cls(num_classes: int, prime: bool, din: int = 256) -> MLPHead:
+    # 256 -> 128 (relu) -> 64 (no relu) -> C; prime adds the GRL
+    return MLPHead(din, (128, 64, num_classes), (True, False, False), prime)
 
 
 class _StackedDense(nn.Module):
@@ -189,3 +231,19 @@ class DomainBank(nn.Module):
         if mode == "all":
             return self.bank(x, None, frozen)
         return self.bank(x, domain.long(), frozen)
+
+
+def param_group_labels(model: nn.Module) -> Dict[str, str]:
+    """Parameter name -> optimizer group of a DG model: 'frozen' (stem and
+    layer1 of the ResNet body), 'detector', 'image_da', 'ins_da', 'ins_cls',
+    'ins_cls_prime'. (FrozenBatchNorm tensors are buffers, in no group.)"""
+    labels = {}
+    for name, _ in model.named_parameters():
+        keys = name.split(".")
+        group = keys[0]
+        if group == "detector" and "body" in keys:
+            rest = keys[keys.index("body") + 1:]
+            if rest[0] == "conv1" or rest[0].startswith("layer1_"):
+                group = "frozen"
+        labels[name] = group
+    return labels

@@ -1,7 +1,7 @@
-"""Feature Pyramid Network for Faster R-CNN (port of
-dgod_tpu/models/fpn.py): C2..C5 laterals, nearest-neighbour top-down
-pathway, 3x3 smoothing convs, and LastLevelMaxPool for the 'pool' level
-(stride 64). LastLevelP6P7 comes with the FCOS slice.
+"""Feature Pyramid Network (port of dgod_tpu/models/fpn.py): laterals,
+nearest-neighbour top-down pathway, 3x3 smoothing convs; LastLevelMaxPool
+for Faster R-CNN's 'pool' level (stride 64) and LastLevelP6P7 for FCOS's P6
+and P7 (strides 64 and 128).
 """
 
 from __future__ import annotations
@@ -54,3 +54,22 @@ class FPN(nn.Module):
 def last_level_max_pool(p_last: torch.Tensor) -> torch.Tensor:
     """Extra 'pool' level: 1x1 max pool with stride 2."""
     return F.max_pool2d(p_last, 1, 2)
+
+
+class LastLevelP6P7(nn.Module):
+    """P6/P7 from P5: 3x3 stride-2 convs with a relu between (FCOS)."""
+
+    def __init__(self, out_channels: int = 256, dtype=torch.float32):
+        super().__init__()
+        self.p6 = Conv(out_channels, out_channels, 3, stride=2, padding=1,
+                       dtype=dtype)
+        self.p7 = Conv(out_channels, out_channels, 3, stride=2, padding=1,
+                       dtype=dtype)
+
+    def reset_parameters(self, gen: torch.Generator):
+        for m in (self.p6, self.p7):
+            init_variance_scaling(m.weight, 1.0 / 3.0, "fan_in", "uniform", gen)
+
+    def forward(self, p5: torch.Tensor):
+        p6 = self.p6(p5)
+        return p6, self.p7(F.relu(p6))

@@ -76,6 +76,37 @@ class Conv(nn.Module):
                         self.stride, self.padding)
 
 
+class GroupNorm(nn.Module):
+    """Flax's GroupNorm on NCHW: groups of consecutive channels, statistics
+    in float32 with the variance as E[x^2] - E[x]^2 (clipped at 0), trainable
+    per-channel `scale`/`bias` (float32), output cast to `dtype`."""
+
+    def __init__(self, c: int, num_groups: int = 32, eps: float = 1e-5,
+                 dtype=torch.float32):
+        super().__init__()
+        self.num_groups = num_groups
+        self.eps = eps
+        self.dtype = dtype
+        self.scale = nn.Parameter(torch.ones(c))
+        self.bias = nn.Parameter(torch.zeros(c))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        B, C, H, W = x.shape
+        xf = x.float()
+        g = xf.reshape(B, self.num_groups, C // self.num_groups * H * W) \
+            if x.is_contiguous() else \
+            xf.permute(0, 2, 3, 1).reshape(B, H * W, self.num_groups, -1)
+        dims = (2,) if x.is_contiguous() else (1, 3)
+        mean = g.mean(dims)  # [B, groups]
+        var = ((g * g).mean(dims) - mean * mean).clamp(min=0.0)
+        rep = C // self.num_groups
+        mean = mean.repeat_interleave(rep, 1)[:, :, None, None]
+        var = var.repeat_interleave(rep, 1)[:, :, None, None]
+        mul = torch.rsqrt(var + self.eps) * self.scale[None, :, None, None]
+        y = (xf - mean) * mul + self.bias[None, :, None, None]
+        return y.to(self.dtype)
+
+
 class Dense(nn.Module):
     """Dense layer, [out, in] float32 weight, computed in `dtype` (None:
     float32, Flax's dtype inference for float32 inputs)."""

@@ -1,8 +1,10 @@
-"""RPN anchor grids (the port's own copy of dgod_tpu/ops/anchors.py).
+"""RPN and FCOS anchor grids (the port's own copy of
+dgod_tpu/ops/anchors.py).
 
-numpy only, computed once per canvas. Parity: sizes 32..512 x aspect ratios
-(0.5, 1, 2) over P2..P6, torchvision cell-anchor rounding, row-major (y, x)
-ordering with A anchors per cell. At 608x1216 over P2..P6, R = 184,680.
+numpy only, computed once per canvas. Parity: RPN sizes 32..512 x aspect
+ratios (0.5, 1, 2) over P2..P6, torchvision cell-anchor rounding, row-major
+(y, x) ordering with A anchors per cell (at 608x1216, R = 184,680); FCOS one
+unit box per location over P3..P7 (at 608x1216, R = 15,402).
 """
 
 from __future__ import annotations
@@ -58,6 +60,20 @@ def rpn_anchors(
         all_anchors.append(a)
         counts.append(a.shape[0])
     return np.concatenate(all_anchors, axis=0), counts
+
+
+def fcos_anchors(
+    feat_shapes: Sequence[Shape2D],
+    image_shape: Shape2D,
+    sizes: Sequence[float] = (8, 16, 32, 64, 128),
+) -> Tuple[np.ndarray, List[int]]:
+    """FCOS per-location unit anchors over P3..P7: one box of side
+    `sizes[level]` per location -> (anchors [sum(H*W), 4], per-level counts).
+
+    The stride is `(ih // fh, iw // fw)`, as in the JAX package: at 608x1216
+    that is (60, 64) for P6 and (121, 121) for P7, while the boxes keep the
+    sides 64 and 128."""
+    return rpn_anchors(feat_shapes, image_shape, [(s,) for s in sizes], (1.0,))
 
 
 def fpn_feat_shapes(image_shape: Shape2D,

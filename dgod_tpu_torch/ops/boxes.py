@@ -112,3 +112,33 @@ def delta_decode(rel_codes: torch.Tensor, boxes: torch.Tensor,
     x2 = pred_cx + 0.5 * pred_w
     y2 = pred_cy + 0.5 * pred_h
     return torch.stack([x1, y1, x2, y2], dim=-1)
+
+
+# -- linear (FCOS) box coder: anchor centre to the four edges, normalised by
+#    the anchor's size -------------------------------------------------------
+
+def linear_encode(reference_boxes: torch.Tensor,
+                  proposals: torch.Tensor) -> torch.Tensor:
+    """Encode target `proposals` around anchor `reference_boxes` -> l/t/r/b
+    offsets over the anchor's width/height."""
+    ctr_x = 0.5 * (reference_boxes[..., 0] + reference_boxes[..., 2])
+    ctr_y = 0.5 * (reference_boxes[..., 1] + reference_boxes[..., 3])
+    l = ctr_x - proposals[..., 0]
+    t = ctr_y - proposals[..., 1]
+    r = proposals[..., 2] - ctr_x
+    b = proposals[..., 3] - ctr_y
+    out = torch.stack([l, t, r, b], dim=-1)
+    w = reference_boxes[..., 2] - reference_boxes[..., 0]
+    h = reference_boxes[..., 3] - reference_boxes[..., 1]
+    return out / torch.stack([w, h, w, h], dim=-1)
+
+
+def linear_decode(rel_codes: torch.Tensor, boxes: torch.Tensor) -> torch.Tensor:
+    """Decode l/t/r/b offsets back to xyxy boxes around anchors `boxes`."""
+    ctr_x = 0.5 * (boxes[..., 0] + boxes[..., 2])
+    ctr_y = 0.5 * (boxes[..., 1] + boxes[..., 3])
+    w = boxes[..., 2] - boxes[..., 0]
+    h = boxes[..., 3] - boxes[..., 1]
+    rel = rel_codes * torch.stack([w, h, w, h], dim=-1)
+    return torch.stack([ctr_x - rel[..., 0], ctr_y - rel[..., 1],
+                        ctr_x + rel[..., 2], ctr_y + rel[..., 3]], dim=-1)

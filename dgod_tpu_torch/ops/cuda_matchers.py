@@ -1,11 +1,19 @@
-"""Wrapper of kernel K3 (`csrc/iou_match.cu`): the batched RPN IoU matcher.
+"""Wrappers of the matcher kernels; codes must equal the plain versions'.
 
-Replaces dgod_tpu/ops/pallas_matchers.py::_iou_match_kernel (via
-iou_match_tpu). Bound on the H100 by operations: ~20 f32 ops and one IEEE
-division per (image, gt, anchor) IoU, computed twice (pass 1 finds each gt's
-best IoU, pass 2 matches each anchor), never materialising the [B,G,R]
-planes; see the source for the design. The plain version is
-`matchers.match_anchors_plain`; codes must agree exactly.
+- K3 (`csrc/iou_match.cu`, `iou_match_cuda`): the batched RPN IoU matcher.
+  Replaces dgod_tpu/ops/pallas_matchers.py::_iou_match_kernel (via
+  iou_match_tpu). Bound on the H100 by operations: ~20 f32 ops and one IEEE
+  division per (image, gt, anchor) IoU, computed twice (pass 1 finds each
+  gt's best IoU, pass 2 matches each anchor), never materialising the
+  [B,G,R] planes. Plain version: `matchers.match_anchors_plain`.
+- K4 (`csrc/fcos_match.cu`, `fcos_match_cuda`): the FCOS centre-sampling
+  matcher. Replaces dgod_tpu/ops/pallas_matchers.py::_fcos_match_kernel (via
+  fcos_match_tpu). Bound by operations (~25 f32 ops per (image, valid gt,
+  anchor)), one thread per anchor over the image's gt in shared memory;
+  each thread derives its anchor's planes (centre, radius, level range) as
+  the plain version `matchers.fcos_match` does.
+
+See the sources for the designs.
 """
 
 from __future__ import annotations
@@ -16,9 +24,12 @@ import torch
 
 from . import _build
 
-launches = 0  # kernel launches since the last reset (see chip_smoke.py)
+# kernel launches since the last reset (see chip_smoke.py)
+launches = 0  # K3
+fcos_launches = 0  # K4
 
 _fn = None
+_fcos_fn = None
 
 
 def _kernel():
@@ -71,4 +82,60 @@ def iou_match_cuda(gt_boxes: torch.Tensor, gt_valid: torch.Tensor,
             stream)
     _build.check_launch(rc, "iou_match")
     launches += 1
+    return out
+
+
+def _fcos_kernel():
+    global _fcos_fn
+    if _fcos_fn is None:
+        fn = _build.load("fcos_match").fcos_match
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
+                       + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        _fcos_fn = fn
+    return _fcos_fn
+
+
+def fcos_match_cuda(anchors: torch.Tensor, gt_boxes: torch.Tensor,
+                    gt_valid: torch.Tensor, num_anchors_per_level,
+                    center_sampling_radius: float = 1.5,
+                    exact_reference_area: bool = False) -> torch.Tensor:
+    """anchors [R,4] f32, gt_boxes [B,G,4] f32, gt_valid [B,G] bool, all
+    contiguous on one CUDA device -> matched [B,R] int32 (kernel K4)."""
+    global fcos_launches
+    for name, t in (("anchors", anchors), ("gt_boxes", gt_boxes),
+                    ("gt_valid", gt_valid)):
+        if not t.is_cuda or t.device != gt_boxes.device:
+            raise ValueError(f"fcos_match_cuda: {name} must be on the CUDA "
+                             f"device of gt_boxes, got {t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"fcos_match_cuda: {name} must be contiguous")
+    if gt_boxes.dtype != torch.float32 or anchors.dtype != torch.float32:
+        raise TypeError("fcos_match_cuda: boxes and anchors must be float32")
+    if gt_valid.dtype != torch.bool:
+        raise TypeError("fcos_match_cuda: gt_valid must be bool")
+    if gt_boxes.dim() != 3 or gt_boxes.shape[-1] != 4:
+        raise ValueError(f"fcos_match_cuda: gt_boxes must be [B,G,4], got "
+                         f"{tuple(gt_boxes.shape)}")
+    B, G = gt_boxes.shape[:2]
+    if tuple(gt_valid.shape) != (B, G):
+        raise ValueError("fcos_match_cuda: gt_valid must be [B,G]")
+    if anchors.dim() != 2 or anchors.shape[-1] != 4:
+        raise ValueError("fcos_match_cuda: anchors must be [R,4]")
+    if gt_boxes.data_ptr() % 16 or anchors.data_ptr() % 16:
+        raise ValueError("fcos_match_cuda: boxes must be 16-byte aligned")
+    R = anchors.shape[0]
+    counts = [int(c) for c in num_anchors_per_level]
+    if sum(counts) != R:
+        raise ValueError("fcos_match_cuda: level counts must sum to R")
+
+    out = torch.empty((B, R), dtype=torch.int32, device=gt_boxes.device)
+    fn = _fcos_kernel()
+    stream = torch.cuda.current_stream(gt_boxes.device).cuda_stream
+    rc = fn(gt_boxes.data_ptr(), gt_valid.data_ptr(), anchors.data_ptr(),
+            out.data_ptr(), B, G, R, counts[0], counts[-1],
+            float(center_sampling_radius), int(bool(exact_reference_area)),
+            stream)
+    _build.check_launch(rc, "fcos_match")
+    fcos_launches += 1
     return out

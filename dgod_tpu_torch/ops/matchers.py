@@ -8,12 +8,13 @@ with a validity mask, outputs are fixed-size index/mask tensors.
 - `match_anchors_batched`: fused box IoU + `iou_match` over a batch. A CUDA
   tensor goes to kernel K3 (`cuda_matchers.iou_match_cuda`), a CPU tensor
   to the plain version `match_anchors_plain`.
+- `fcos_match_batched`: the FCOS centre-sampling matcher over a batch. A
+  CUDA tensor goes to kernel K4 (`cuda_matchers.fcos_match_cuda`), a CPU
+  tensor to the plain version `fcos_match`.
 - `balanced_sample`: torchvision BalancedPositiveNegativeSampler as
   fixed-size sampling; the uniform priorities are an input, so the caller
   decides where the randomness comes from (a torch.Generator on the main
   path, the JAX model's own draws in the parity tests).
-
-The FCOS matcher comes with the FCOS slice.
 """
 
 from __future__ import annotations
@@ -76,6 +77,68 @@ def match_anchors_batched(gt_boxes, gt_valid, anchors, high_threshold,
                               low_threshold, allow_low_quality_matches)
     return match_anchors_plain(gt_boxes, gt_valid, anchors, high_threshold,
                                low_threshold, allow_low_quality_matches)
+
+
+def fcos_match(anchors: torch.Tensor, gt_boxes: torch.Tensor,
+               gt_valid: torch.Tensor, num_anchors_per_level,
+               center_sampling_radius: float = 1.5,
+               exact_reference_area: bool = False) -> torch.Tensor:
+    """Plain version of K4, the FCOS centre-sampling matcher over a batch:
+    anchors [R,4] unit boxes (all levels), gt [B,G,4]/[B,G] -> matched
+    index [B,R] int32 in [-1, G). Materialises [B,R,G] planes.
+
+    An anchor matches a valid gt when its centre lies within radius * size
+    of the gt centre (Chebyshev), strictly inside the gt, and its largest
+    regression distance inside its level's range; among matches the
+    smallest area wins (argmax of mask * (1e8 - area), first index on ties),
+    and a best quality below 1e-5 means no match. `exact_reference_area`
+    computes the area as (y1 - x1) * (y2 - y1), the reference's formula."""
+    # anchor planes [R, 1], as fcos_match_tpu builds them: centre, radius *
+    # size, and the range of the largest distance, (4, 8) * size with the
+    # first level from 0 and the last to infinity
+    anchors = anchors.float()
+    R = anchors.shape[0]
+    size = (anchors[:, 2] - anchors[:, 0])[:, None]
+    cx = 0.5 * (anchors[:, 0:1] + anchors[:, 2:3])
+    cy = 0.5 * (anchors[:, 1:2] + anchors[:, 3:4])
+    rad = center_sampling_radius * size
+    pos = torch.arange(R, device=anchors.device)[:, None]
+    lower = torch.where(pos < num_anchors_per_level[0],
+                        torch.zeros_like(size), size * 4.0)
+    upper = torch.where(pos >= R - num_anchors_per_level[-1],
+                        torch.full_like(size, float("inf")), size * 8.0)
+    gt = gt_boxes.float()
+    gx1, gy1, gx2, gy2 = (gt[:, None, :, i] for i in range(4))  # [B, 1, G]
+    gcx = 0.5 * (gx1 + gx2)
+    gcy = 0.5 * (gy1 + gy2)
+    match = torch.maximum((cx - gcx).abs(), (cy - gcy).abs()) < rad
+    d1, d2, d3, d4 = cx - gx1, cy - gy1, gx2 - cx, gy2 - cy  # [B, R, G]
+    match &= torch.minimum(torch.minimum(d1, d2), torch.minimum(d3, d4)) > 0
+    max_d = torch.maximum(torch.maximum(d1, d2), torch.maximum(d3, d4))
+    match &= (max_d > lower) & (max_d < upper)
+    match &= gt_valid[:, None, :]
+    if exact_reference_area:
+        area = (gy1 - gx1) * (gy2 - gy1)
+    else:
+        area = (gx2 - gx1) * (gy2 - gy1)
+    quality = match.float() * (1e8 - area)
+    best, idx = quality.max(dim=-1)  # first index among equal maxima
+    return torch.where(best < 1e-5, torch.full_like(idx, -1), idx).to(
+        torch.int32)
+
+
+def fcos_match_batched(anchors, gt_boxes, gt_valid, num_anchors_per_level,
+                       center_sampling_radius=1.5, exact_reference_area=False):
+    """`fcos_match` over the batch -> matched [B, R] int32. CUDA tensors run
+    kernel K4; CPU tensors run the plain version."""
+    if gt_boxes.is_cuda:
+        from .cuda_matchers import fcos_match_cuda
+
+        return fcos_match_cuda(anchors, gt_boxes, gt_valid,
+                               num_anchors_per_level, center_sampling_radius,
+                               exact_reference_area)
+    return fcos_match(anchors, gt_boxes, gt_valid, num_anchors_per_level,
+                      center_sampling_radius, exact_reference_area)
 
 
 class SampleResult(NamedTuple):

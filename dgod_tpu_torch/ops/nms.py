@@ -5,11 +5,13 @@ images in the same tensor ops, never one Python call per image.
 - `nms_mask_blocked`: exact greedy keep-mask via rank-ordered blocks (RPN
   proposals). Blocks are decided in score order; within a block a fixed
   point on the [block, block] overlap tile converges to the greedy result.
-- `nms_topk` / `batched_nms_topk`: the first k greedy picks by k
-  argmax-and-suppress steps (postprocess, `detections_per_img`), the
-  class-aware one by the coordinate-offset trick.
+- `nms_topk` / `batched_nms_topk`: the first k greedy picks
+  (postprocess, `detections_per_img`), the class-aware one by the
+  coordinate-offset trick. A CUDA tensor goes to kernel K6
+  (`cuda_nms.nms_topk_cuda`), a CPU tensor to the plain version
+  `nms_topk_plain`, k argmax-and-suppress steps.
 
-These stay plain torch until kernels K5/K6 are ported.
+`nms_mask_blocked` stays plain torch until kernel K5 is ported.
 """
 
 from __future__ import annotations
@@ -61,11 +63,12 @@ def nms_mask_blocked(boxes: torch.Tensor, scores: torch.Tensor,
     return keep
 
 
-def nms_topk(boxes: torch.Tensor, scores: torch.Tensor, valid: torch.Tensor,
-             iou_threshold: float, k: int):
-    """First-k greedy NMS picks per row: boxes [B,K,4], scores/valid [B,K]
-    -> (idx [B,k] int64, ok [B,k] bool, kept_scores [B,k]), in greedy
-    (descending score) order."""
+def nms_topk_plain(boxes: torch.Tensor, scores: torch.Tensor,
+                   valid: torch.Tensor, iou_threshold: float, k: int):
+    """Plain version of K6: first-k greedy NMS picks per row. boxes [B,K,4],
+    scores/valid [B,K] -> (idx [B,k] int64, ok [B,k] bool, kept_scores
+    [B,k]), in greedy (descending score) order; where ok is False, idx is 0
+    and the kept score -inf."""
     neg_inf = torch.tensor(float("-inf"), dtype=scores.dtype,
                            device=scores.device)
     live = torch.where(valid, scores, neg_inf)
@@ -84,6 +87,22 @@ def nms_topk(boxes: torch.Tensor, scores: torch.Tensor, valid: torch.Tensor,
         oks.append(ok)
         kept.append(pick_score)
     return torch.stack(idx, 1), torch.stack(oks, 1), torch.stack(kept, 1)
+
+
+def nms_topk(boxes: torch.Tensor, scores: torch.Tensor, valid: torch.Tensor,
+             iou_threshold: float, k: int):
+    """First-k greedy NMS picks per row; the returns of `nms_topk_plain`.
+    CUDA tensors run kernel K6; CPU tensors run the plain version."""
+    if not boxes.is_cuda:
+        return nms_topk_plain(boxes, scores, valid, iou_threshold, k)
+    from .cuda_nms import nms_topk_cuda
+
+    idx, ok = nms_topk_cuda(boxes.float().contiguous(),
+                            scores.float().contiguous(), valid.contiguous(),
+                            iou_threshold, k)
+    neg_inf = torch.full((), float("-inf"), dtype=scores.dtype,
+                         device=scores.device)
+    return idx, ok, torch.where(ok, torch.gather(scores, 1, idx), neg_inf)
 
 
 def _class_offsets(boxes: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:

@@ -1,15 +1,18 @@
 """Weights carried from the JAX model to the port.
 
-`params_from_jax(tree)` takes the JAX DGFRCNNModel's parameter tree as
-nested dicts of numpy arrays (e.g. `jax.tree.map(np.asarray, params)`) and
-returns the port's `state_dict`: the port's parameter names are the tree's
-paths joined with '.', with `kernel` renamed `weight`.
+`params_from_jax(tree)` takes the parameter tree of a JAX DGFRCNNModel or
+DGFCOSModel as nested dicts of numpy arrays (e.g.
+`jax.tree.map(np.asarray, params)`) and returns the port's `state_dict`:
+the port's parameter names are the tree's paths joined with '.', with
+`kernel` renamed `weight`.
 
 - conv kernels: HWIO -> OIHW;
 - dense kernels: [in, out] -> [out, in] (fc6 included: both models flatten
   the pooled RoI patch HWC, so it is a plain transpose);
 - DomainBank kernels `bank/fc{i}/kernel` [D, in, out] keep their layout;
-- FrozenBatchNorm `scale/bias/mean/var` become the port's buffers.
+- FrozenBatchNorm `scale/bias/mean/var` become the port's buffers;
+- GroupNorm `scale/bias` (the FCOS head) are the port's trainable
+  parameters of the same names.
 
 Every leaf is used; an unknown leaf raises. Loading a torchvision
 checkpoint directly waits for a later slice.

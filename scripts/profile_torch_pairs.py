@@ -39,7 +39,9 @@ import chip_smoke as cs  # noqa: E402
 # kernel name -> category, first match wins
 CATEGORIES = (
     ("K1/K2 roi_align (port)", r"fwd_kernel|bwd_kernel|cast_bf16_kernel"),
+    ("K4 fcos_match (port)", r"fcos_match_kernel"),
     ("K3 iou_match (port)", r"best_kernel|match_kernel|init_best"),
+    ("K6 nms_topk (port)", r"nms_topk_kernel"),
     ("conv / gemm (cuDNN, cuBLAS)",
      r"gemm|cutlass|xmma|cudnn|conv|wgrad|dgrad|fprop|sm90_|nhwc"),
     ("sort / top-k", r"[Ss]ort|radix|topk|bitonic"),

@@ -1,7 +1,9 @@
 """Shared helpers for the port's parity tests (tests/test_torch_*.py).
 
 The same numpy inputs go through a dgod_tpu function (JAX, CPU) and its
-dgod_tpu_torch counterpart (torch, CPU). Random draws are the JAX model's
+dgod_tpu_torch counterpart (torch, CPU). `build_pair` and `build_fcos_pair`
+give a small float32 JAX model of each family and its port with the same
+weights. Random draws are the JAX model's
 own: `jax_draws` re-derives them with the split chain of
 dg_frcnn._train_forward (rng -> k_rpn, k_roi) -> faster_rcnn rpn_loss /
 select_training_samples (split per image) -> matchers.balanced_sample
@@ -15,9 +17,13 @@ import jax.numpy as jnp
 import numpy as np
 import torch
 
+from dgod_tpu.models.dg_fcos import DGFCOSModel as JaxDGFCOS
 from dgod_tpu.models.dg_frcnn import DGFRCNNModel as JaxDGFRCNN
+from dgod_tpu.models.fcos import FCOSLossConfig as JaxLossConfig
 from dgod_tpu.models.faster_rcnn import FRCNNConfig as JaxConfig
+from dgod_tpu_torch.models.dg_fcos import DGFCOSModel
 from dgod_tpu_torch.models.dg_frcnn import DGFRCNNModel, Draws, batch_to_torch
+from dgod_tpu_torch.models.fcos import FCOSLossConfig
 from dgod_tpu_torch.models.faster_rcnn import FRCNNConfig
 from dgod_tpu_torch.utils.weights import load_jax_params
 
@@ -69,6 +75,21 @@ def build_pair(seed=0):
     tm = DGFRCNNModel(num_classes=9, num_domains=NUM_DOMAINS, canvas=CANVAS,
                       config=FRCNNConfig(**SMALL), compute_dtype=torch.float32,
                       backbone_block_counts=BLOCKS, device="cpu")
+    load_jax_params(tm, jax.tree.map(np.asarray, jp))
+    return jm, jp, tm
+
+
+def build_fcos_pair(seed=0, **loss_config):
+    """(JAX DG FCOS, its params, the port with the same weights), float32,
+    both under the same `FCOSLossConfig(**loss_config)`."""
+    jm = JaxDGFCOS(num_classes=9, num_domains=NUM_DOMAINS, canvas=CANVAS,
+                   loss_config=JaxLossConfig(**loss_config),
+                   compute_dtype=jnp.float32, backbone_block_counts=BLOCKS)
+    jp = jm.init(jax.random.PRNGKey(seed))
+    tm = DGFCOSModel(num_classes=9, num_domains=NUM_DOMAINS, canvas=CANVAS,
+                     loss_config=FCOSLossConfig(**loss_config),
+                     compute_dtype=torch.float32, backbone_block_counts=BLOCKS,
+                     device="cpu")
     load_jax_params(tm, jax.tree.map(np.asarray, jp))
     return jm, jp, tm
 

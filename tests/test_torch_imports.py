@@ -24,6 +24,7 @@ import torch
 
 import dgod_tpu_torch
 from dgod_tpu_torch.device import resolve_device
+from dgod_tpu_torch.models.dg_fcos import DGFCOSModel
 from dgod_tpu_torch.models.dg_frcnn import DGFRCNNModel
 
 REPO = Path(__file__).resolve().parents[1]
@@ -44,8 +45,9 @@ def _env():
 
 def test_import_leaves_jax_and_dgod_tpu_out():
     mods = _submodules()
-    assert "dgod_tpu_torch.ops.cuda_roi_align" in mods
-    assert "dgod_tpu_torch.utils.weights" in mods
+    for m in ("ops.cuda_roi_align", "ops.cuda_matchers", "ops.cuda_nms",
+              "models.fcos", "models.dg_fcos", "utils.weights"):
+        assert f"dgod_tpu_torch.{m}" in mods
     code = (
         "import importlib, json, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -86,6 +88,8 @@ def test_entry_point_without_device_needs_cuda(monkeypatch):
         resolve_device()
     with pytest.raises(RuntimeError, match="CUDA"):
         DGFRCNNModel()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        DGFCOSModel()
     with pytest.raises(RuntimeError, match="CUDA"):
         resolve_device("cuda:0")
     assert resolve_device("cpu") == torch.device("cpu")
