@@ -11,10 +11,11 @@ Phases, each of which fails the run (non-zero exit) on any fault:
    all at once);
 3. hold each kernel against its plain PyTorch version on the card at the
    main paths' shapes (K1 RoIAlign forward, K2 its backward, K3 the RPN IoU
-   matcher, K4 the FCOS centre-sampling matcher, K6 first-k greedy NMS at
-   both predicts' shapes), timing both with CUDA events; then run a small
-   float32 model of each family on the card and on the CPU with the same
-   weights, batch and random draws and require the same losses;
+   matcher, K4 the FCOS centre-sampling matcher, K5 the RPN proposal
+   decode + NMS at the training and predict shapes, K6 first-k greedy NMS
+   at both predicts' shapes), timing both with CUDA events; then run a
+   small float32 model of each family on the card and on the CPU with the
+   same weights, batch and random draws and require the same losses;
 4. train: the full-width DG Faster R-CNN (ResNet-50 (3,4,6,3), 608x1216,
    default FRCNNConfig, 3 domains, bf16, batch 8, random weights from a
    seed) runs two DG cycles of fused pairs (0,1), (0,2), (0,3), (0,4) under
@@ -26,9 +27,20 @@ Phases, each of which fails the run (non-zero exit) on any fault:
 7. the kernels' launch counts: each family's path is driven with every
    count set to 0 just before it and read just after. Every pair and every
    predict must launch exactly the kernels its family runs (K2 not in mode
-   2's frozen half, K4 not in FCOS mode 1, K6 once per predict), and every
-   kernel must have run on some path; K3, K4 and K6 are held against their
-   plain versions once more on the last inputs the path gave them.
+   2's frozen half, K4 not in FCOS mode 1, K5 in each FRCNN half and
+   predict, K6 once per predict), and every kernel must have run on some
+   path; K3-K6 are held against their plain versions once more on the last
+   inputs the path gave them;
+8. the CLI, the product's entry point, at full width for each family: a
+   synthetic dataset of PNGs and CSVs (source domains a, b, c with 16 train
+   and 8 val images each, target i with 8 val images, 600x1200) in a
+   temporary --data_root; the calibrated random init saved as the warm
+   start .ckpt; `dgod_tpu_torch.cli.main` for `--exp dg --max_epochs 1
+   --batch_size 8 --eval_batch_size 8` (6 fused pairs, a validation and a
+   test sweep), counts from 0 around it; then the test mAP finite in
+   [0, 1], the best checkpoint finite and moved from the init, the launches
+   those of 6 pairs and 4 predicts, and a `--max_epochs 0` rerun giving
+   the same test mAP.
 
 Output: one line per phase, then the card's name and power limit, then one
 JSON line {"kernels": [...]} (times, launches, errors and bounds), and last
@@ -38,9 +50,12 @@ package beside it, the script exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import csv
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 import types
 
@@ -423,6 +438,138 @@ def check_nms_topk(dev, report):
     report["K6"]["max_abs_err"] = max_diff
 
 
+TRAIN_LEVELS = (2000, 2000, 2000, 2000, 570)  # rpn top-k per level, training
+PREDICT_LEVELS = (1000, 1000, 1000, 1000, 570)  # and at predict
+RPN_NMS = 0.7
+
+
+def proposal_inputs(rng: np.random.RandomState, levels):
+    """K5's inputs at one main-path shape, in rank order per level: anchors
+    of the RPN's sizes over the canvas; deltas ~0.5 randn with extremes
+    (dw/dh beyond the log(1000/16) clamp, centres thrown off the image,
+    sides under min_size); scores quantised to 1/4 (runs of exact ties);
+    per level 16 nested pairs at adjacent ranks whose IoU lies within a few
+    ulps of 0.7; image 0's last level all invalid (zero-area anchors);
+    images of two sizes (clipping)."""
+    H, W = CANVAS
+    K = sum(levels)
+    cx = rng.uniform(0, W, (B, K))
+    cy = rng.uniform(0, H, (B, K))
+    side = np.exp(rng.uniform(np.log(16), np.log(700), (B, K)))
+    aspect = np.exp(rng.uniform(-0.7, 0.7, (B, K)))
+    aw, ah = side * aspect, side / aspect
+    anchors = np.stack([cx - aw / 2, cy - ah / 2, cx + aw / 2, cy + ah / 2],
+                       -1).astype(np.float32)
+    deltas = (0.5 * rng.randn(B, K, 4)).astype(np.float32)
+    deltas[:, ::17, 2:] = 8.0
+    deltas[:, ::23, :2] = -6.0
+    deltas[:, ::29, 2:] = -15.0
+    scores = np.zeros((B, K), np.float32)
+    start = 0
+    for n in levels:
+        s = np.floor(rng.randn(B, n) * 4) / 4
+        scores[:, start:start + n] = -np.sort(-s, axis=1)
+        for b in range(B):
+            ranks = start + rng.choice(n // 2, 16, replace=False) * 2
+            x0, y0 = rng.uniform(0, W / 2), rng.uniform(0, H / 2)
+            for r in ranks:
+                w, h = rng.uniform(10, 500), rng.uniform(10, 300)
+                w2 = w * 0.7 * (1 + rng.uniform(-2e-6, 2e-6))
+                anchors[b, r] = [x0, y0, x0 + w, y0 + h]
+                anchors[b, r + 1] = [x0, y0, x0 + w2, y0 + h]
+                deltas[b, r:r + 2] = 0.0
+        start += n
+    anchors[0, K - levels[-1]:] = [50, 50, 50, 50]
+    sizes = np.tile(np.float32([600, 1200]), (B, 1))
+    sizes[1::2] = [480, 1000]
+    return deltas, anchors, scores, sizes
+
+
+def greedy_keep(boxes, levels):
+    """The plain NMS on given boxes: validity from small_box_mask and
+    nms_mask_blocked per level in rank order (strictly decreasing scores)."""
+    from dgod_tpu_torch.ops.boxes import small_box_mask
+    from dgod_tpu_torch.ops.nms import nms_mask_blocked
+
+    valid = small_box_mask(boxes, 1e-3)
+    rank = -torch.arange(boxes.shape[1], device=boxes.device,
+                         dtype=torch.float32).expand(boxes.shape[0], -1)
+    keep, start = [], 0
+    for n in levels:
+        sl = slice(start, start + n)
+        keep.append(nms_mask_blocked(boxes[:, sl], rank[:, sl], valid[:, sl],
+                                     RPN_NMS))
+        start += n
+    return torch.cat(keep, 1), valid
+
+
+def proposal_work(keep, valid, levels):
+    """IoU tests this run's data needs: each kept box against every later
+    valid box of its level."""
+    n, start = 0, 0
+    for size in levels:
+        v = valid[:, start:start + size].long()
+        later = v.flip(1).cumsum(1).flip(1) - v  # valid boxes after each
+        n += int((later * keep[:, start:start + size]).sum())
+        start += size
+    return n
+
+
+def hold_k5(label, got, ref_boxes, levels):
+    """K5's outputs against the plain version: the keep mask must equal
+    the plain NMS on the kernel's own boxes (0 differences), the boxes the
+    plain decode to rtol 1e-6. -> (max abs error, kept count)."""
+    boxes, keep = got
+    ref_keep, valid = greedy_keep(boxes, levels)
+    n_keep = int((keep != ref_keep).sum())
+    err = float((boxes - ref_boxes).abs().max())
+    n_box = int((boxes != ref_boxes).any(-1).sum())
+    close = bool(((boxes - ref_boxes).abs()
+                  <= 1e-6 * ref_boxes.abs()).all())
+    print(f"K5 decode_nms {label}: {n_keep} keep flags differ of "
+          f"{keep.numel()}; {n_box} boxes not bit-equal (max abs err "
+          f"{err:.3e}); {int(keep.sum())} kept, {int(valid.sum())} valid")
+    if n_keep or not close or not torch.isfinite(boxes).all():
+        fail(f"K5 disagrees with its plain version ({label})")
+    return max(err, float(n_keep)), keep, valid
+
+
+def check_proposals(dev, report):
+    from dgod_tpu_torch.ops import cuda_proposals as K
+    from dgod_tpu_torch.ops.proposals import decode_nms_plain
+
+    rng = np.random.RandomState(13)
+    max_err = 0.0
+    for name, levels in (("train", TRAIN_LEVELS), ("predict", PREDICT_LEVELS)):
+        d, a, s, sz = (torch.from_numpy(x).to(dev)
+                       for x in proposal_inputs(rng, levels))
+        got = K.decode_nms_cuda(d, a, sz, levels, RPN_NMS)
+        torch.cuda.synchronize()
+        ref_boxes, ref_keep = decode_nms_plain(d, a, s, sz, levels, RPN_NMS)
+        err, keep, valid = hold_k5(f"{name} K={sum(levels)}", got, ref_boxes,
+                                   levels)
+        max_err = max(max_err, err)
+        n = levels[-1]
+        if bool(keep[0, -n:].any()) or not bool(keep[1, -n:].any()):
+            fail("K5: the all-invalid level kept something, or a valid one "
+                 "nothing")
+        print(f"  plain decode_nms keeps the same as the kernel: "
+              f"{int((ref_keep != keep).sum())} flags differ")
+        ms = cuda_time_ms(lambda: K.decode_nms_cuda(d, a, sz, levels,
+                                                    RPN_NMS))
+        plain = cuda_time_ms(lambda: decode_nms_plain(d, a, s, sz, levels,
+                                                      RPN_NMS), iters=3)
+        print(f"K5 {ms:.3f} ms (plain {plain:.3f}) at B={B} K={sum(levels)}")
+        if name == "train":  # the row of the kernels line
+            entries = B * sum(levels)
+            report["K5"] = dict(
+                ms=ms, plain_ms=plain,
+                bytes=entries * (16 + 16 + 16 + 1) + B * 8,
+                # ~30 ops per decoded entry, ~14 per IoU test
+                ops=30 * entries + 14 * proposal_work(keep, valid, levels))
+    report["K5"]["max_abs_err"] = max_err
+
+
 def synthetic_batch(rng: np.random.RandomState, b: int, canvas, num_domains):
     H, W = canvas
     boxes = np.zeros((b, G, 4), np.float32)
@@ -573,34 +720,39 @@ def dg_cycle(path, before_pair=None, after_pair=None):
 
 
 def reset_counts():
-    from dgod_tpu_torch.ops import cuda_matchers, cuda_nms, cuda_roi_align
+    from dgod_tpu_torch.ops import (cuda_matchers, cuda_nms, cuda_proposals,
+                                    cuda_roi_align)
 
     cuda_roi_align.fwd_launches = 0
     cuda_roi_align.bwd_launches = 0
     cuda_matchers.launches = 0
     cuda_matchers.fcos_launches = 0
+    cuda_proposals.launches = 0
     cuda_nms.launches = 0
 
 
 def read_counts():
-    from dgod_tpu_torch.ops import cuda_matchers, cuda_nms, cuda_roi_align
+    from dgod_tpu_torch.ops import (cuda_matchers, cuda_nms, cuda_proposals,
+                                    cuda_roi_align)
 
     return {"K1": cuda_roi_align.fwd_launches,
             "K2": cuda_roi_align.bwd_launches,
             "K3": cuda_matchers.launches,
             "K4": cuda_matchers.fcos_launches,
+            "K5": cuda_proposals.launches,
             "K6": cuda_nms.launches}
 
 
 def expected_launches(family: str, k=None):
     """Kernel launches of pair (0,k), or of a predict when k is None."""
-    want = dict.fromkeys(("K1", "K2", "K3", "K4", "K6"), 0)
-    if k is None:  # predict: K1 pools the proposals, K6 runs the NMS
-        want.update(K1=1 if family == "FRCNN" else 0, K6=1)
+    want = dict.fromkeys(("K1", "K2", "K3", "K4", "K5", "K6"), 0)
+    if k is None:  # predict: K5 the proposals, K1 pools them, K6 the NMS
+        want.update(K1=1 if family == "FRCNN" else 0,
+                    K5=1 if family == "FRCNN" else 0, K6=1)
     elif family == "FRCNN":
         # K2 runs in each half that backpropagates into the FPN: not in
-        # mode 2, whose detector is frozen
-        want.update(K1=2, K2=1 if k == 2 else 2, K3=1)
+        # mode 2, whose detector is frozen; K5 in each half's proposals
+        want.update(K1=2, K2=1 if k == 2 else 2, K3=1, K5=2)
     else:  # mode 0's loss and modes 2-4's gt_classes match; mode 1 does not
         want.update(K4=1 if k == 1 else 2)
     return want
@@ -608,15 +760,16 @@ def expected_launches(family: str, k=None):
 
 class LastCalls:
     """While the main path runs, keep the arguments of the last call of
-    each exact-code kernel wrapper (K3, K4, K6), so that afterwards each
-    kernel can be held against its plain version on the path's own inputs.
-    The wrappers are called as before: each still counts its launch."""
+    each exact-code kernel wrapper (K3-K6), so that afterwards each kernel
+    can be held against its plain version on the path's own inputs. The
+    wrappers are called as before: each still counts its launch."""
 
     def __init__(self):
-        from dgod_tpu_torch.ops import cuda_matchers, cuda_nms
+        from dgod_tpu_torch.ops import cuda_matchers, cuda_nms, cuda_proposals
 
         self.targets = {"K3": (cuda_matchers, "iou_match_cuda"),
                         "K4": (cuda_matchers, "fcos_match_cuda"),
+                        "K5": (cuda_proposals, "decode_nms_cuda"),
                         "K6": (cuda_nms, "nms_topk_cuda")}
         self.originals = {kid: getattr(m, name)
                           for kid, (m, name) in self.targets.items()}
@@ -638,11 +791,22 @@ class LastCalls:
         """Each recorded call again, kernel against plain version."""
         from dgod_tpu_torch.ops.matchers import fcos_match, match_anchors_plain
         from dgod_tpu_torch.ops.nms import nms_topk_plain
+        from dgod_tpu_torch.ops.proposals import decode_nms_plain
 
         plain = {"K3": match_anchors_plain, "K4": fcos_match,
                  "K6": nms_topk_plain}
         for kid, (a, k) in sorted(self.args.items()):
             got = self.originals[kid](*a, **k)
+            if kid == "K5":  # the rank order is the input order
+                deltas, anchors, sizes, levels = a[:4]
+                rank = -torch.arange(deltas.shape[1], dtype=torch.float32,
+                                     device=deltas.device).expand(
+                                         deltas.shape[0], -1)
+                ref_boxes = decode_nms_plain(deltas, anchors, rank, sizes,
+                                             levels, *a[4:], **k)[0]
+                hold_k5(f"{family} on the main path's last inputs", got,
+                        ref_boxes, levels)
+                continue
             ref = plain[kid](*a, **k)
             if kid == "K6":
                 ref, extra = ref[:2], f", {int(got[1].sum())} picks"
@@ -736,6 +900,168 @@ def run_main_path(dev, family: str):
     return counts
 
 
+CLI_IMAGE = (600, 1200)
+CLI_SPLITS = {("a", "train"): 16, ("b", "train"): 16, ("c", "train"): 16,
+              ("a", "val"): 8, ("b", "val"): 8, ("c", "val"): 8,
+              ("i", "val"): 8}
+
+
+def write_cli_dataset(root: str) -> None:
+    """PNGs (the port's stdlib writer) and CSVs in the layout of
+    DOMAIN_SPECS: smooth random backgrounds with 2-8 coloured boxes each,
+    labels 1..8."""
+    from dgod_tpu_torch.cli import DOMAIN_SPECS
+    from dgod_tpu_torch.data.png import write_png
+
+    rng = np.random.RandomState(21)
+    H, W = CLI_IMAGE
+    yy, xx = np.mgrid[0:H, 0:W]
+    for (letter, split), n in CLI_SPLITS.items():
+        name, csv_tpl, root_tpl = DOMAIN_SPECS[letter]
+        img_dir = os.path.join(root, root_tpl.format(split=split))
+        os.makedirs(img_dir, exist_ok=True)
+        rows = []
+        for i in range(n):
+            c0, c1 = rng.randint(0, 256, (2, 3))
+            t = (xx / W)[..., None]
+            img = (c0 * (1 - t) + c1 * t).astype(np.uint8)
+            img += rng.randint(0, 8, (H, W, 3)).astype(np.uint8)
+            k = rng.randint(2, 9)
+            boxes, labels = [], []
+            for _ in range(k):
+                w = rng.randint(W // 30, W // 3)
+                h = rng.randint(H // 20, H * 5 // 12)
+                x, y = rng.randint(0, W - w), rng.randint(0, H - h)
+                img[y:y + h, x:x + w] = rng.randint(0, 256, 3)
+                boxes.append(f"{x} {y} {x + w} {y + h}")
+                labels.append(str(rng.randint(1, 9)))
+            fname = f"{name}_{split}_{i:03d}.png"
+            write_png(os.path.join(img_dir, fname), img)
+            rows.append((fname, ";".join(boxes), ";".join(labels)))
+        csv_path = os.path.join(root, csv_tpl.format(split=split))
+        os.makedirs(os.path.dirname(csv_path), exist_ok=True)
+        with open(csv_path, "w", newline="") as f:
+            w = csv.writer(f)
+            w.writerow(["image_name", "BoxesString", "LabelsString"])
+            w.writerows(rows)
+
+
+def save_warm_start(dev, family: str, root: str, ckpt: str):
+    """The calibrated random init, as the CLI builds the model, saved as the
+    warm-start checkpoint with val_acc -inf (the reference's warm start,
+    train_driving_dg.py:154-155). -> its parameters, on the CPU."""
+    from dgod_tpu_torch.cli import DOMAIN_SPECS
+    from dgod_tpu_torch.data.dataset import DrivingDataset
+    from dgod_tpu_torch.data.loader import TrainLoader
+    from dgod_tpu_torch.models.dg_fcos import DGFCOSModel
+    from dgod_tpu_torch.models.dg_frcnn import DGFRCNNModel
+    from dgod_tpu_torch.train import steps as S
+    from dgod_tpu_torch.train.checkpoint import CheckpointStore
+    from dgod_tpu_torch.train.optim import init_opt_state
+
+    _, csv_tpl, root_tpl = DOMAIN_SPECS["a"]
+    data = DrivingDataset(os.path.join(root, csv_tpl.format(split="train")),
+                          os.path.join(root, root_tpl.format(split="train")),
+                          0)
+    batches = TrainLoader(data, B, dg=False).epoch()
+    images = next(batches)["image"]
+    batches.close()
+    cls = {"FRCNN": DGFRCNNModel, "FCOS": DGFCOSModel}[family]
+    model = cls(num_classes=9, num_domains=3, canvas=CANVAS, device=dev,
+                seed=42)
+    calibrate_frozen_bn(model, torch.from_numpy(images).to(dev))
+    opt_config, _ = S.make_optimizer(family)
+    CheckpointStore(ckpt).save(
+        -1, model.state_dict(),
+        init_opt_state(dict(model.named_parameters()), opt_config),
+        {"val_acc": -float("inf"), "epoch": -1})
+    init = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+    del model
+    return init
+
+
+def cli_launches(family: str):
+    """Launches of one CLI epoch: 6 fused pairs (1,2,3,4,1,2) and 4
+    predicts (3 validation batches, 1 test batch)."""
+    want = expected_launches(family)
+    want = {k: 4 * n for k, n in want.items()}
+    for k in (1, 2, 3, 4, 1, 2):
+        for kid, n in expected_launches(family, k).items():
+            want[kid] += n
+    return want
+
+
+def run_cli_phase(dev, family: str, root: str):
+    """Phase 8 for one family: train_driving_dg_torch.py's main at full
+    width on the card, counts from 0 around it. -> the launch counts."""
+    from dgod_tpu_torch import cli
+    from dgod_tpu_torch.train.checkpoint import CheckpointStore
+
+    wdir = os.path.join(root, f"weights_{family}")
+    ckpt = os.path.join(wdir, "dg.ckpt")
+    init = save_warm_start(dev, family, root, ckpt)
+    argv = ["--model", family, "--exp", "dg", "--source_domains", "ABC",
+            "--target_domains", "I", "--batch_size", str(B),
+            "--eval_batch_size", str(B), "--data_root", root,
+            "--weights_folder", wdir, "--weights_file", "dg",
+            "--metrics_path", os.path.join(wdir, "metrics.jsonl")]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    reset_counts()  # this slice's main path starts here
+    with LastCalls() as last_calls:
+        t = time.perf_counter()
+        result = cli.main(argv + ["--max_epochs", "1"])
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t
+    counts = read_counts()  # and ends here
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    last_calls.check(f"CLI {family}")
+    map50 = float(result["map_50"])
+    print(f"CLI {family}: test mAP@0.5 {map50:.6f}; per class "
+          f"{np.round(result['map_per_class'], 4).tolist()}")
+    if not (np.isfinite(map50) and 0.0 <= map50 <= 1.0):
+        fail(f"CLI {family}: test mAP@0.5 {map50} is not in [0, 1]")
+    if counts != cli_launches(family):
+        fail(f"CLI {family}: launches {counts}, expected "
+             f"{cli_launches(family)}")
+    saved, _, meta = CheckpointStore(ckpt).load_latest()
+    bad = [k for k, v in saved.items() if not torch.isfinite(v).all()]
+    moved = [k for k in saved if not torch.equal(saved[k], init[k])]
+    print(f"CLI {family}: best checkpoint epoch {meta['epoch']} val_acc "
+          f"{meta['val_acc']:.6f}; {len(moved)} of {len(saved)} tensors "
+          f"moved from the init")
+    if meta["epoch"] != 0 or bad or not moved:
+        fail(f"CLI {family}: checkpoint epoch {meta['epoch']}, non-finite "
+             f"{bad[:3]}, moved {len(moved)}")
+    with open(os.path.join(wdir, "metrics.jsonl")) as f:
+        epochs = [json.loads(line) for line in f
+                  if '"scope": "epoch"' in line]
+    img_s = epochs[-1]["images_per_sec"]
+
+    t = time.perf_counter()
+    with LastCalls() as rerun_calls:
+        again = cli.main(argv + ["--max_epochs", "0"])
+        torch.cuda.synchronize()
+    test_s = time.perf_counter() - t
+    diff = abs(float(again["map_50"]) - map50)
+    # the last test batch's candidates (class-offset boxes, scores) as K6
+    # got them in each run: the same weights must predict the same
+    first, rerun = last_calls.args["K6"][0][:2], rerun_calls.args["K6"][0][:2]
+    pred_diff = max(float((a - b).abs().max()) for a, b in zip(first, rerun))
+    print(f"CLI {family}: --max_epochs 0 rerun test mAP@0.5 "
+          f"{float(again['map_50']):.6f} (diff {diff:.1e}); last test "
+          f"batch's NMS candidates differ by {pred_diff:.1e}")
+    if diff > 1e-6 or pred_diff > 1e-4:
+        fail(f"CLI {family}: the rerun from the checkpoint predicts "
+             f"otherwise (mAP {diff}, candidates {pred_diff})")
+    print(f"CLI {family}: train {img_s:.2f} images/s (6 fused pairs of "
+          f"{B}, each batch twice); fit+val+test {fit_s:.1f} s, rerun "
+          f"(load + test) {test_s:.1f} s; peak memory {peak:.1f} GiB; "
+          f"launches {counts}")
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -780,14 +1106,23 @@ def main() -> int:
     check_iou_match(dev, anchors, report)
     check_fcos_match(dev, report)
     check_nms_topk(dev, report)
+    check_proposals(dev, report)
     for family in ("FRCNN", "FCOS"):
         check_small_model_card_vs_cpu(dev, family)
 
-    # 4-7. the main path of each family
+    # 4-7. the main path of each family; 8. the CLI of each family
     counts = {}
-    for family in ("FRCNN", "FCOS"):
-        for kid, n in run_main_path(dev, family).items():
-            counts[kid] = counts.get(kid, 0) + n
+    runs = [lambda f=f: run_main_path(dev, f) for f in ("FRCNN", "FCOS")]
+    with tempfile.TemporaryDirectory() as root:
+        t = time.perf_counter()
+        write_cli_dataset(root)
+        print(f"CLI dataset: {sum(CLI_SPLITS.values())} PNGs of "
+              f"{CLI_IMAGE} written in {time.perf_counter() - t:.1f} s")
+        runs += [lambda f=f: run_cli_phase(dev, f, root)
+                 for f in ("FRCNN", "FCOS")]
+        for run in runs:
+            for kid, n in run().items():
+                counts[kid] = counts.get(kid, 0) + n
     for kid, n in counts.items():
         if n <= 0:
             fail(f"{kid} was not launched on any main path")
@@ -801,6 +1136,8 @@ def main() -> int:
                "dgod_tpu/ops/pallas_matchers.py:94"),
         "K4": ("fcos_match", "dgod_tpu_torch/csrc/fcos_match.cu",
                "dgod_tpu/ops/pallas_matchers.py:202"),
+        "K5": ("decode_nms", "dgod_tpu_torch/csrc/proposals.cu",
+               "dgod_tpu/ops/pallas_proposals.py:37"),
         "K6": ("nms_topk", "dgod_tpu_torch/csrc/nms_topk.cu",
                "dgod_tpu/ops/pallas_nms.py:32"),
     }

@@ -2,8 +2,9 @@
 dgod_tpu/models/faster_rcnn.py), batched over images throughout.
 
 - RPN head + anchors over P2..P6 (sizes 32..512 x ratios 0.5/1/2); per
-  level top-k -> decode -> clip -> small-box filter -> greedy NMS 0.7 ->
-  global top post_nms_top_n, with validity masks.
+  level top-k -> decode -> clip -> small-box filter -> greedy NMS 0.7 (one
+  call for all levels, kernel K5 on the card) -> global top post_nms_top_n,
+  with validity masks.
 - targets: IoU matcher 0.7/0.3 with the low-quality rescue (kernel K3 on
   the card), balanced sampler 256 @ 50%, smooth-L1 (beta 1/9) + BCE.
 - RoI head: GT-augmented proposal matching 0.5/0.5, 512 @ 25%, multi-scale
@@ -31,6 +32,7 @@ from ..ops import boxes as box_ops
 from ..ops import losses as loss_ops
 from ..ops import matchers
 from ..ops import nms as nms_ops
+from ..ops.proposals import decode_nms
 from ..ops.roi_align import roi_align as multiscale_roi_align
 from .backbone import FRCNNBackbone
 from .layers import Conv, Dense, init_lecun_normal, init_normal
@@ -184,37 +186,34 @@ class FRCNNDetector(nn.Module):
                            training: bool):
         """torchvision filter_proposals, static shape. objectness/deltas:
         per-level [B, R_l(, 4)] -> (proposals [B, Npost, 4], valid
-        [B, Npost], scores [B, Npost]). No gradient flows through."""
+        [B, Npost], scores [B, Npost]). No gradient flows through.
+
+        The per-level top-k (a stable sort, as jax.lax.top_k orders ties)
+        feeds one `decode_nms` call for every level and image: kernel K5
+        on the card, with no host sync."""
         cfg = self.config
         pre_n = cfg.rpn_pre_nms_train if training else cfg.rpn_pre_nms_test
         post_n = cfg.rpn_post_nms_train if training else cfg.rpn_post_nms_test
-        h = image_sizes[:, 0:1].float()
-        w = image_sizes[:, 1:2].float()
-        level_boxes, level_scores, level_valid = [], [], []
+        top_scores, top_deltas, top_anchors, ks = [], [], [], []
         start = 0
         for lvl, count in enumerate(self.anchor_counts):
             anc = self.anchors[start:start + count]
             start += count
-            obj = objectness[lvl].detach()
-            dl = deltas[lvl].detach()
             k = min(pre_n, count)
-            top_scores, top_idx = _top_sorted(obj, k)
-            boxes = box_ops.delta_decode(_gather_rows(dl, top_idx),
-                                         anc[top_idx])
-            boxes = box_ops.clip_boxes(boxes, h, w)
-            ok = box_ops.small_box_mask(boxes, 1e-3)
-            keep = nms_ops.nms_mask_blocked(boxes, top_scores, ok,
-                                            cfg.rpn_nms_thresh)
-            level_boxes.append(boxes)
-            level_scores.append(torch.where(
-                keep, top_scores, torch.full_like(top_scores, float("-inf"))))
-            level_valid.append(keep)
-        boxes = torch.cat(level_boxes, 1)
-        scores = torch.cat(level_scores, 1)
-        valid = torch.cat(level_valid, 1)
+            s, idx = _top_sorted(objectness[lvl].detach(), k)
+            top_scores.append(s)
+            top_deltas.append(_gather_rows(deltas[lvl].detach(), idx))
+            top_anchors.append(anc[idx])
+            ks.append(k)
+        top_scores = torch.cat(top_scores, 1)
+        boxes, keep = decode_nms(torch.cat(top_deltas, 1),
+                                 torch.cat(top_anchors, 1), top_scores,
+                                 image_sizes, ks, cfg.rpn_nms_thresh)
+        scores = torch.where(keep, top_scores,
+                             torch.full_like(top_scores, float("-inf")))
         top_s, top_i = _top_sorted(scores, min(post_n, boxes.shape[1]))
         return (_gather_rows(boxes, top_i),
-                torch.gather(valid, 1, top_i) & (top_s > float("-inf")), top_s)
+                torch.gather(keep, 1, top_i) & (top_s > float("-inf")), top_s)
 
     # -- RPN loss ----------------------------------------------------------
 

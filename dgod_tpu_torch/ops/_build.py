@@ -25,7 +25,7 @@ from typing import Dict, Iterable
 PKG = Path(__file__).resolve().parents[1]
 CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "_build"
-SOURCES = ("roi_align", "iou_match", "fcos_match", "nms_topk")
+SOURCES = ("roi_align", "iou_match", "fcos_match", "nms_topk", "proposals")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 

@@ -11,7 +11,8 @@ images in the same tensor ops, never one Python call per image.
   (`cuda_nms.nms_topk_cuda`), a CPU tensor to the plain version
   `nms_topk_plain`, k argmax-and-suppress steps.
 
-`nms_mask_blocked` stays plain torch until kernel K5 is ported.
+`nms_mask_blocked` is the NMS of the proposals' plain version
+(`proposals.decode_nms_plain`); on the card the proposals run kernel K5.
 """
 
 from __future__ import annotations

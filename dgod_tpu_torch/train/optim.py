@@ -1,5 +1,5 @@
-"""Optimizers with per-mode participation masks (port of
-dgod_tpu/train/optim.py:25-82).
+"""Optimizers with per-mode participation masks, and the host-side
+plateau LR scheduler and early stopping (port of dgod_tpu/train/optim.py).
 
 Each mode updates only its active parameters. The update is written out by
 hand rather than through `torch.optim`, because it must touch every active
@@ -64,3 +64,56 @@ def apply_updates(params: Dict[str, torch.Tensor],
         v_hat = v / (1 - config.b2 ** c)
         p.copy_(p - lr * m_hat / (torch.sqrt(v_hat) + config.eps))
     return opt_state
+
+
+class ReduceLROnPlateau:
+    """Host-side plateau scheduler (torch semantics: mode max, factor 0.1,
+    patience 5, threshold 1e-4 rel; reference DGFRCNN.py:105, DGFCOS.py:149)."""
+
+    def __init__(self, factor=0.1, patience=5, threshold=1e-4, min_lr=0.0):
+        self.factor = factor
+        self.patience = patience
+        self.threshold = threshold
+        self.min_lr = min_lr
+        self.best = -float("inf")
+        self.num_bad = 0
+        self.scale = 1.0
+
+    def is_better(self, metric):
+        if self.best == -float("inf"):
+            return True
+        if self.best > 0:
+            return metric > self.best * (1.0 + self.threshold)
+        return metric > self.best * (1.0 - self.threshold)
+
+    def step(self, metric: float) -> float:
+        """Feed the epoch metric; returns the current lr scale."""
+        if self.is_better(metric):
+            self.best = metric
+            self.num_bad = 0
+        else:
+            self.num_bad += 1
+            if self.num_bad > self.patience:
+                self.scale = max(self.scale * self.factor, self.min_lr)
+                self.num_bad = 0
+        return self.scale
+
+
+class EarlyStopping:
+    """Max-mode early stopping (patience 10, min_delta 0;
+    train_driving_dg.py:160)."""
+
+    def __init__(self, patience=10, min_delta=0.0):
+        self.patience = patience
+        self.min_delta = min_delta
+        self.best = -float("inf")
+        self.num_bad = 0
+
+    def step(self, metric: float) -> bool:
+        """Returns True if training should stop."""
+        if metric > self.best + self.min_delta:
+            self.best = metric
+            self.num_bad = 0
+        else:
+            self.num_bad += 1
+        return self.num_bad >= self.patience

@@ -12,8 +12,10 @@ up, one timed on the host clock, and one under torch.profiler.
 
 Prints the host-clock time of each pair step and of the predict, the
 device's busy time (the sum of its kernels, memcpys and memsets in the
-profiled cycle) and its idle share against the timed cycle, the device
-time by kernel category and the 25 kernels with the most device time.
+profiled cycle) and its idle share against the timed cycle, the profiled
+cycle's device launches and host syncs (CUDA synchronize calls, and the
+device-to-host scalar reads that make most of them), the device time by
+kernel category and the 25 kernels with the most device time.
 Writes the full table (and with --trace a chrome trace) under --out.
 Needs a CUDA device.
 """
@@ -42,6 +44,7 @@ CATEGORIES = (
     ("K4 fcos_match (port)", r"fcos_match_kernel"),
     ("K3 iou_match (port)", r"best_kernel|match_kernel|init_best"),
     ("K6 nms_topk (port)", r"nms_topk_kernel"),
+    ("K5 decode_nms (port)", r"\b(decode|mask|scan)_kernel\b"),
     ("conv / gemm (cuDNN, cuBLAS)",
      r"gemm|cutlass|xmma|cudnn|conv|wgrad|dgrad|fprop|sm90_|nhwc"),
     ("sort / top-k", r"[Ss]ort|radix|topk|bitonic"),
@@ -112,8 +115,13 @@ def main() -> int:
         prof.export_chrome_trace(str(out / "dg_cycle_trace.json"))
     # kernel, memcpy and memset entries only: an operator's entry repeats
     # the device time of the kernels it launched
-    events = [e for e in prof.key_averages()
+    averages = prof.key_averages()
+    events = [e for e in averages
               if e.device_type == torch.autograd.DeviceType.CUDA]
+    host = {e.key: e.count for e in averages
+            if e.device_type == torch.autograd.DeviceType.CPU}
+    syncs = sum(n for k, n in host.items() if re.fullmatch(
+        r"cuda(Stream|Device|Event)Synchronize", k))
     busy_ms = sum(device_time_us(e) for e in events) / 1e3
     if busy_ms <= 0:
         raise SystemExit("profile_torch_pairs: the profiler recorded no "
@@ -138,6 +146,11 @@ def main() -> int:
     print(f"DG cycle: host clock {wall_ms:.1f} ms (sum of the synchronised "
           f"steps), device busy {busy_ms:.1f} ms (profiler), idle share "
           f"{1 - busy_ms / wall_ms:.3f}")
+    print(f"profiled cycle: {sum(e.count for e in events)} device launches "
+          f"(kernels, memcpys, memsets); {syncs} host syncs "
+          f"(cuda*Synchronize), {host.get('aten::_local_scalar_dense', 0)} "
+          f"device-to-host scalar reads, {host.get('aten::equal', 0)} "
+          f"torch.equal")
     print("device time by category (ms, share of busy):")
     for cat, ms in by_cat.most_common():
         print(f"  {ms:9.2f}  {ms / busy_ms:6.3f}  {cat}")

@@ -1,0 +1,149 @@
+"""The port's CLI (`dgod_tpu_torch.cli`) against the JAX package's.
+
+- `vars(parser_args([]))` equals JAX's: the same flags and defaults;
+- `cli.main(argv, device="cpu")` end to end on PNGs and CSVs (arg parsing
+  -> datasets -> loaders -> Trainer.fit -> checkpoint -> test sweep) for
+  both families, reduced canvas and backbone depth: it returns `map_50`,
+  writes the `.ckpt`, and a `--max_epochs 0` rerun (warm start, no
+  training) reproduces the test mAP;
+- `--reference_quirks` reaches the FCOS loss config, the loader and the
+  fused-pair switch, as tests/test_cli.py checks for JAX;
+- `--mesh`, `--torch_weights`, `--process_loader` raise.
+"""
+
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from dgod_tpu.cli import parser_args as jax_parser_args
+from dgod_tpu_torch import cli
+from dgod_tpu_torch.data import png
+from dgod_tpu_torch.data import transforms as T
+from dgod_tpu_torch.models import dg_fcos, dg_frcnn
+from dgod_tpu_torch.models.faster_rcnn import FRCNNConfig
+
+SMALL_FRCNN = FRCNNConfig(rpn_pre_nms_train=256, rpn_pre_nms_test=256,
+                          rpn_post_nms_train=256, rpn_post_nms_test=256,
+                          rpn_batch_per_image=64, box_batch_per_image=64)
+
+
+def test_flag_surface_matches_jax():
+    assert vars(cli.parser_args([])) == vars(jax_parser_args([]))
+    argv = ["--model", "FCOS", "--exp", "dg", "--reg_weights", "1", "2", "3",
+            "4", "5", "--batch_size", "4", "--reference_quirks"]
+    assert vars(cli.parser_args(argv)) == vars(jax_parser_args(argv))
+
+
+def write_domains(root, letters_splits, n=4, hw=(60, 120)):
+    """PNGs (the port's writer) and CSVs in DOMAIN_SPECS's layout, one
+    'car' box per image."""
+    rng = np.random.RandomState(0)
+    h, w = hw
+    for letter, split in letters_splits:
+        name, csv_tpl, root_tpl = cli.DOMAIN_SPECS[letter]
+        img_root = os.path.join(root, root_tpl.format(split=split))
+        os.makedirs(img_root, exist_ok=True)
+        rows = []
+        for i in range(n):
+            fname = f"{name}_{split}_{i}.png"
+            img = rng.randint(0, 255, (h, w, 3)).astype(np.uint8)
+            img[15:40, 20:60] = (250, 30, 30)
+            png.write_png(os.path.join(img_root, fname), img)
+            rows.append(f"{fname},20 15 60 40,3")
+        csv_path = os.path.join(root, csv_tpl.format(split=split))
+        os.makedirs(os.path.dirname(csv_path), exist_ok=True)
+        with open(csv_path, "w") as f:
+            f.write("image_name,BoxesString,LabelsString\n")
+            f.write("\n".join(rows) + "\n")
+
+
+@pytest.fixture
+def small(monkeypatch):
+    """64x128 canvas, backbone blocks (1,1,1,1), float32, small FRCNN
+    sampling sizes; one intra-op thread (the suite runs several workers on
+    the machine's cores, and torch's thread pools then oversubscribe it)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    monkeypatch.setattr(T, "CANVAS", (64, 128))
+    monkeypatch.setattr(T, "TRAIN_SIZE", (60, 120))
+    monkeypatch.setattr(T, "MIN_SIZE", 60)
+    monkeypatch.setattr(T, "MAX_SIZE", 120)
+    monkeypatch.setattr(T, "MIN_AREA", 1.0)
+    small_kw = dict(backbone_block_counts=(1, 1, 1, 1),
+                    compute_dtype=torch.float32)
+    frcnn, fcos = dg_frcnn.DGFRCNNModel, dg_fcos.DGFCOSModel
+    monkeypatch.setattr(dg_frcnn, "DGFRCNNModel", lambda **kw: frcnn(
+        config=SMALL_FRCNN, **small_kw, **kw))
+    monkeypatch.setattr(dg_fcos, "DGFCOSModel",
+                        lambda **kw: fcos(**small_kw, **kw))
+    yield
+    torch.set_num_threads(threads)
+
+
+@pytest.mark.parametrize("family,exp", [("FRCNN", "dg"), ("FCOS", "dg"),
+                                        ("FCOS", "non_dg")])
+def test_cli_main_end_to_end(tmp_path, small, family, exp):
+    root = str(tmp_path)
+    write_domains(root, [("a", "train"), ("b", "train"), ("a", "val"),
+                         ("b", "val"), ("i", "val")])
+    argv = ["--model", family, "--exp", exp,
+            "--source_domains", "AB", "--target_domains", "I",
+            "--batch_size", "4", "--eval_batch_size", "3",
+            "--data_root", root, "--weights_folder", os.path.join(root, "w"),
+            "--weights_file", "t",
+            "--metrics_path", os.path.join(root, "metrics.jsonl")]
+    result = cli.main(argv + ["--max_epochs", "1"], device="cpu")
+    assert 0.0 <= result["map_50"] <= 1.0
+    ckpt = os.path.join(root, "w", "t.ckpt")
+    assert os.path.exists(ckpt)
+    saved = torch.load(ckpt, weights_only=True)
+    assert saved["meta"]["epoch"] == 0
+    assert all(torch.isfinite(v).all() for v in saved["params"].values())
+    with open(os.path.join(root, "metrics.jsonl")) as f:
+        assert '"scope": "epoch"' in f.read()
+    again = cli.main(argv + ["--max_epochs", "0"], device="cpu")
+    assert again["map_50"] == result["map_50"]
+    np.testing.assert_array_equal(again["map_per_class"],
+                                  result["map_per_class"])
+
+
+def test_cli_reference_quirks_flag(tmp_path, monkeypatch):
+    """--reference_quirks plumbs end to end: the FCOS loss config gets both
+    quirk flags, the loader re-samples the dg replay, and the fused pair
+    step is off (it cannot reproduce re-sampled augmentation)."""
+    captured = {}
+
+    class _StopTrainer:
+        def __init__(self, model, train_loader, val_loader, **kw):
+            captured["model"] = model
+            captured["train_loader"] = train_loader
+            captured["kw"] = kw
+            raise RuntimeError("stop-before-training")
+
+    monkeypatch.setattr(cli, "Trainer", _StopTrainer)
+    monkeypatch.setattr(dg_fcos, "DGFCOSModel",
+                        lambda **kw: type("M", (), kw))
+    root = str(tmp_path)
+    write_domains(root, [("a", "train"), ("a", "val"), ("i", "val")], n=1)
+    argv = ["--model", "FCOS", "--exp", "dg", "--source_domains", "A",
+            "--target_domains", "I", "--data_root", root,
+            "--weights_folder", str(tmp_path / "w"), "--weights_file", "q"]
+    for quirks in (True, False):
+        with pytest.raises(RuntimeError, match="stop-before-training"):
+            cli.main(argv + ["--reference_quirks"] * quirks, device="cpu")
+        cfg = captured["model"].loss_config
+        assert cfg.single_gt_quirk is quirks
+        assert cfg.exact_reference_area is quirks
+        assert captured["train_loader"].resample_replay is quirks
+        assert captured["kw"]["fused_pairs"] is not quirks
+        assert captured["kw"]["device"] == torch.device("cpu")
+
+
+@pytest.mark.parametrize("flag", [["--mesh", "data=2"],
+                                  ["--torch_weights", "x.pth"],
+                                  ["--process_loader"]])
+def test_flags_not_in_the_port_raise(flag):
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue A"):
+        cli.main(flag, device="cpu")

@@ -3,7 +3,10 @@
 - `import dgod_tpu_torch` and every submodule leave jax, flax and dgod_tpu
   out of sys.modules, and build no kernel (a subprocess: this test process
   has JAX loaded by tests/conftest.py);
-- no file of the port imports jax, flax or dgod_tpu (AST scan);
+- `dgod_tpu_torch.cli` imports with pandas, cv2 and jax absent, as on the
+  machine with the card (a subprocess that blocks them);
+- no file of the port, chip_smoke.py or train_driving_dg_torch.py imports
+  jax, flax or dgod_tpu (AST scan);
 - an entry point called without `device` on a host without CUDA raises
   instead of running on the CPU;
 - chip_smoke.py exits non-zero and prints no result without a card, and
@@ -46,7 +49,11 @@ def _env():
 def test_import_leaves_jax_and_dgod_tpu_out():
     mods = _submodules()
     for m in ("ops.cuda_roi_align", "ops.cuda_matchers", "ops.cuda_nms",
-              "models.fcos", "models.dg_fcos", "utils.weights"):
+              "ops.cuda_proposals", "ops.proposals", "models.fcos",
+              "models.dg_fcos", "utils.weights", "utils.logging", "cli",
+              "eval.coco_map", "data.dataset", "data.png", "data.native",
+              "data.transforms", "data.loader", "train.harness",
+              "train.checkpoint"):
         assert f"dgod_tpu_torch.{m}" in mods
     code = (
         "import importlib, json, sys\n"
@@ -64,6 +71,20 @@ def test_import_leaves_jax_and_dgod_tpu_out():
     assert res["built"] == []  # kernels build at first launch, not import
 
 
+def test_cli_imports_without_pandas_cv2_or_jax():
+    code = (
+        "import sys\n"
+        "for name in ('pandas', 'cv2', 'jax', 'jaxlib', 'flax'):\n"
+        "    sys.modules[name] = None  # any import of them raises\n"
+        "import dgod_tpu_torch.cli as cli\n"
+        "from dgod_tpu_torch.data import dataset\n"
+        "print(cli.parser_args([]).model)\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=_env(),
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "FRCNN"
+
+
 def _imported_roots(path: Path):
     tree = ast.parse(path.read_text(), filename=str(path))
     for node in ast.walk(tree):
@@ -76,7 +97,8 @@ def _imported_roots(path: Path):
 
 @pytest.mark.parametrize("path", sorted(
     str(p.relative_to(REPO)) for p in [*PKG.rglob("*.py"),
-                                       REPO / "chip_smoke.py"]))
+                                       REPO / "chip_smoke.py",
+                                       REPO / "train_driving_dg_torch.py"]))
 def test_no_file_of_the_port_imports_jax(path):
     roots = set(_imported_roots(REPO / path))
     assert not roots & set(FORBIDDEN), (path, sorted(roots & set(FORBIDDEN)))

@@ -23,7 +23,7 @@ from dgod_tpu.train import optim as j_optim
 from dgod_tpu.train import steps as j_steps
 from dgod_tpu_torch.ops import anchors as t_anchors
 from dgod_tpu_torch.ops import boxes as t_boxes
-from dgod_tpu_torch.ops import cuda_matchers, cuda_roi_align
+from dgod_tpu_torch.ops import cuda_matchers, cuda_proposals, cuda_roi_align
 from dgod_tpu_torch.ops import losses as t_losses
 from dgod_tpu_torch.ops import matchers as t_matchers
 from dgod_tpu_torch.ops import nms as t_nms
@@ -358,6 +358,11 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError):
         cuda_roi_align.roi_align_bwd_cuda(feats, torch.zeros(1, 3, 4),
                                           torch.zeros(1, 3, 7, 7, 8))
+    with pytest.raises(ValueError):
+        cuda_proposals.decode_nms_cuda(torch.zeros(1, 8, 4),
+                                       torch.zeros(1, 8, 4),
+                                       torch.ones(1, 2), (8,), 0.7)
     assert cuda_matchers.launches == 0
+    assert cuda_proposals.launches == 0
     assert cuda_roi_align.fwd_launches == 0
     assert cuda_roi_align.bwd_launches == 0

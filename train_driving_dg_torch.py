@@ -1,0 +1,12 @@
+#!/usr/bin/env python3
+"""Experiment entry script of the PyTorch/CUDA port (dgod_tpu_torch) on one
+NVIDIA card — the same flags as train_driving_dg.py. Example:
+
+  python3 train_driving_dg_torch.py --model FRCNN --exp dg \
+      --source_domains ABC --target_domains I --weights_folder ABC2I \
+      --weights_file abc2i_dgfrcnn --reg_weights 0.5 0.5 0.5 0.05 0.0001
+"""
+from dgod_tpu_torch.cli import main
+
+if __name__ == "__main__":
+    main()
