@@ -29,8 +29,9 @@ Phases, each of which fails the run (non-zero exit) on any fault:
    predict must launch exactly the kernels its family runs (K2 not in mode
    2's frozen half, K4 not in FCOS mode 1, K5 in each FRCNN half and
    predict, K6 once per predict), and every kernel must have run on some
-   path; K3-K6 are held against their plain versions once more on the last
-   inputs the path gave them;
+   path; K2-K6 are held against their plain versions once more on the last
+   inputs the path gave them (K2 also against itself: two calls, the same
+   bits);
 8. the CLI, the product's entry point, at full width for each family: a
    synthetic dataset of PNGs and CSVs (source domains a, b, c with 16 train
    and 8 val images each, target i with 8 val images, 600x1200) in a
@@ -65,6 +66,11 @@ import torch
 # H100 SXM published peaks (NVIDIA data sheet, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12  # float32 outside the tensor cores
+
+# The previous designs' times, from this script at the same shapes on an
+# NVIDIA H100 80GB HBM3 at 700 W: K2 as an f32 atomic scatter with a zero
+# and a cast pass, K5 with a scan that decided one row per step
+PREVIOUS_MS = {"K2": 1.853, "K5 train": 1.047, "K5 predict": 0.458}
 
 CANVAS = (608, 1216)
 B = 8
@@ -123,6 +129,57 @@ def make_rois(rng: np.random.RandomState, n: int) -> np.ndarray:
     return rois
 
 
+def hold_k2(label, feats, rois, g):
+    """K2 against autograd of the plain version on `feats`' shapes: the VJP
+    does not depend on the feature values, so float32 copies give the
+    exact reference grads. On f32 features K2 returns its f32 sums, taken
+    in another order than autograd's (2e-5 of the level's largest grad);
+    on bf16 features it returns them rounded once to bf16, held against
+    the reference rounded to bf16 (one bf16 step where the order moves a
+    sum across a rounding boundary). Grads under 1 (the main path's) are
+    held relative to their own largest value. A second bf16 call must give
+    the same bits: K2 sums each cell in a fixed order. -> (max error,
+    touched cells)."""
+    from dgod_tpu_torch.ops import cuda_roi_align as K
+    from dgod_tpu_torch.ops.roi_align import roi_align_plain
+
+    feats32 = [f.detach().float() for f in feats]
+    feats16 = [f.detach().to(torch.bfloat16) for f in feats]
+    leaves = [f.clone().requires_grad_(True) for f in feats32]
+    ref_grads = torch.autograd.grad(roi_align_plain(leaves, rois), leaves, g)
+    del leaves
+    got32 = K.roi_align_bwd_cuda(feats32, rois, g)
+    got16 = K.roi_align_bwd_cuda(feats16, rois, g)
+    again16 = K.roi_align_bwd_cuda(feats16, rois, g)
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(got16, again16))
+    print(f"K2 {label}: two bf16 calls give bit-identical grads: {same}")
+    if not same:
+        fail(f"K2 is not deterministic ({label})")
+    err_bwd = 0.0
+    touched_cells = 0
+    for lvl, (ref, a32, a16) in enumerate(zip(ref_grads, got32, got16)):
+        ref_max = float(ref.abs().max())
+        scale = ref_max if 0.0 < ref_max < 1.0 else max(1.0, ref_max)
+        err32 = float((ref - a32).abs().max())
+        ref16 = ref.to(torch.bfloat16).float()
+        d16 = (ref16 - a16.float()).abs()
+        err16 = float(d16.max())
+        print(f"K2 {label} level {lvl}: max_abs_err f32 {err32:.3e}, "
+              f"bf16 {err16:.3e} (ref max {ref_max:.3e})")
+        if a32.dtype != torch.float32 or a16.dtype != torch.bfloat16:
+            fail("K2 must return grads in the feature dtype")
+        if not torch.isfinite(a32).all() or err32 > 2e-5 * scale:
+            fail(f"K2 disagrees with autograd of the plain version "
+                 f"(P{lvl + 2}, {label})")
+        if not bool((d16 <= 2.0 ** -7 * ref16.abs() + 2e-5 * scale).all()):
+            fail(f"K2's bf16 grads disagree with the reference (P{lvl + 2}, "
+                 f"{label})")
+        err_bwd = max(err_bwd, err32, err16)
+        touched_cells += int((ref.abs().sum(-1) > 0).sum())
+    return err_bwd, touched_cells
+
+
 def check_roi_align(dev, report):
     from dgod_tpu_torch.ops import cuda_roi_align as K
     from dgod_tpu_torch.ops.roi_align import roi_align_plain
@@ -149,53 +206,22 @@ def check_roi_align(dev, report):
                 fail(f"K1 disagrees with its plain version (N={n}, {name})")
             err_fwd = max(err_fwd, err)
 
-    # K2 against autograd of the plain version; the VJP does not depend on
-    # the feature values, so f32 features give the exact reference grads.
-    # On f32 features K2 returns its f32 sums (atomics add in another order:
-    # 2e-5 of the level's largest grad); on bf16 features it returns them
-    # cast to bf16, held against the reference cast to bf16 (one bf16 step
-    # where the order moves a sum across a rounding boundary).
     g = torch.from_numpy(rng.randn(B, N_TRAIN, 7, 7, C).astype(np.float32)
                          ).to(dev)
-    leaves = [f.detach().requires_grad_(True) for f in feats32]
-    ref_grads = torch.autograd.grad(roi_align_plain(leaves, rois[N_TRAIN]),
-                                    leaves, g)
-    del leaves
-    got32 = K.roi_align_bwd_cuda(feats32, rois[N_TRAIN], g)
-    got16 = K.roi_align_bwd_cuda(feats16, rois[N_TRAIN], g)
-    torch.cuda.synchronize()
-    err_bwd = 0.0
-    touched_cells = 0
-    for lvl, (ref, a32, a16) in enumerate(zip(ref_grads, got32, got16)):
-        scale = max(1.0, float(ref.abs().max()))
-        err32 = float((ref - a32).abs().max())
-        ref16 = ref.to(torch.bfloat16).float()
-        d16 = (ref16 - a16.float()).abs()
-        err16 = float(d16.max())
-        print(f"K2 roi_align_bwd level {lvl}: max_abs_err f32 {err32:.3e}, "
-              f"bf16 {err16:.3e} (ref max {scale:.3f})")
-        if a32.dtype != torch.float32 or a16.dtype != torch.bfloat16:
-            fail("K2 must return grads in the feature dtype")
-        if not torch.isfinite(a32).all() or err32 > 2e-5 * scale:
-            fail(f"K2 disagrees with autograd of the plain version (P{lvl + 2})")
-        if not bool((d16 <= 2.0 ** -7 * ref16.abs() + 2e-5 * scale).all()):
-            fail(f"K2's bf16 grads disagree with the reference (P{lvl + 2})")
-        err_bwd = max(err_bwd, err32, err16)
-        touched_cells += int((ref.abs().sum(-1) > 0).sum())
-    del got32, ref_grads
+    err_bwd, touched_cells = hold_k2("adversarial RoIs", feats32,
+                                     rois[N_TRAIN], g)
     # the autograd path returns what the direct call returns
     leaves16 = [f.detach().requires_grad_(True) for f in feats16]
     grads16 = torch.autograd.grad(
         K.roi_align_cuda(leaves16, rois[N_TRAIN]), leaves16, g)
+    got16 = K.roi_align_bwd_cuda(feats16, rois[N_TRAIN], g)
     for a, b in zip(got16, grads16):
-        err = float((a.float() - b.float()).abs().max())
-        if b.dtype != torch.bfloat16 or err > 2.0 ** -7 * max(
-                1.0, float(a.float().abs().max())):
-            fail(f"K2 through autograd differs from the direct call ({err})")
+        if b.dtype != torch.bfloat16 or not torch.equal(a, b):
+            fail("K2 through autograd differs from the direct call")
     del got16, grads16
 
     # times at the train shape (bf16 features, N=512); K2 is the whole
-    # backward: zeroing, the atomic scatter and the cast to bf16
+    # backward: the geometry pass and the tiled gather
     r = rois[N_TRAIN]
     k1_ms = cuda_time_ms(lambda: K.roi_align_fwd_cuda(feats16, r))
     k1_plain = cuda_time_ms(lambda: roi_align_plain(feats16, r), iters=3)
@@ -206,8 +232,8 @@ def check_roi_align(dev, report):
     k1_pred = cuda_time_ms(lambda: K.roi_align_fwd_cuda(feats16, rois[N_TEST]))
     print(f"K1 {k1_ms:.3f} ms (plain {k1_plain:.3f}) at B={B} N={N_TRAIN} "
           f"bf16; {k1_pred:.3f} ms at N={N_TEST}")
-    print(f"K2 {k2_ms:.3f} ms (plain autograd {k2_plain:.3f}) at B={B} "
-          f"N={N_TRAIN} bf16")
+    print(f"K2 {k2_ms:.3f} ms (plain autograd {k2_plain:.3f}; previous "
+          f"design {PREVIOUS_MS['K2']:.3f}) at B={B} N={N_TRAIN} bf16")
 
     n_roi = B * N_TRAIN
     pooled_bytes = n_roi * 49 * C * 4
@@ -559,7 +585,8 @@ def check_proposals(dev, report):
                                                     RPN_NMS))
         plain = cuda_time_ms(lambda: decode_nms_plain(d, a, s, sz, levels,
                                                       RPN_NMS), iters=3)
-        print(f"K5 {ms:.3f} ms (plain {plain:.3f}) at B={B} K={sum(levels)}")
+        print(f"K5 {ms:.3f} ms (plain {plain:.3f}; previous design "
+              f"{PREVIOUS_MS['K5 ' + name]:.3f}) at B={B} K={sum(levels)}")
         if name == "train":  # the row of the kernels line
             entries = B * sum(levels)
             report["K5"] = dict(
@@ -760,14 +787,17 @@ def expected_launches(family: str, k=None):
 
 class LastCalls:
     """While the main path runs, keep the arguments of the last call of
-    each exact-code kernel wrapper (K3-K6), so that afterwards each kernel
-    can be held against its plain version on the path's own inputs. The
-    wrappers are called as before: each still counts its launch."""
+    K2 and of each exact-code kernel wrapper (K3-K6), so that afterwards
+    each kernel can be held against its plain version on the path's own
+    inputs. The wrappers are called as before: each still counts its
+    launch."""
 
     def __init__(self):
-        from dgod_tpu_torch.ops import cuda_matchers, cuda_nms, cuda_proposals
+        from dgod_tpu_torch.ops import (cuda_matchers, cuda_nms,
+                                        cuda_proposals, cuda_roi_align)
 
-        self.targets = {"K3": (cuda_matchers, "iou_match_cuda"),
+        self.targets = {"K2": (cuda_roi_align, "roi_align_bwd_cuda"),
+                        "K3": (cuda_matchers, "iou_match_cuda"),
                         "K4": (cuda_matchers, "fcos_match_cuda"),
                         "K5": (cuda_proposals, "decode_nms_cuda"),
                         "K6": (cuda_nms, "nms_topk_cuda")}
@@ -796,6 +826,9 @@ class LastCalls:
         plain = {"K3": match_anchors_plain, "K4": fcos_match,
                  "K6": nms_topk_plain}
         for kid, (a, k) in sorted(self.args.items()):
+            if kid == "K2":
+                hold_k2(f"{family} on the main path's last inputs", *a, **k)
+                continue
             got = self.originals[kid](*a, **k)
             if kid == "K5":  # the rank order is the input order
                 deltas, anchors, sizes, levels = a[:4]

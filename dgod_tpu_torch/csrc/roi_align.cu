@@ -13,25 +13,53 @@
 // f32 xyxy in image pixels, pooled [B,N,7,7,C] f32, level grads [B,H_l,W_l,C]
 // in the feature dtype, the four levels back to back in one buffer.
 //
-// Bound on the H100: bytes. The forward writes B*N*49*C f32 (205 MB at
-// B=8, N=512, C=256) and reads each RoI's window of cells; the backward
-// reads that much gradient and writes the level grads in the feature dtype
-// (251 MB in bf16 at B=8). It accumulates in an f32 buffer that is zeroed,
-// added into and then cast to bf16 by a third pass, so it moves several
-// times the bytes the function needs. Design: one block per RoI, threads
-// over channels, so a warp's loads and stores of one NHWC cell are 32
-// neighbouring channels
-// (coalesced). The block first computes the RoI's level and its 14 sample
-// coordinates per axis into shared memory (lo/hi cell and weight, with the
-// out-of-range mask folded into the weights), exactly as the plain
-// version's geometry, with explicitly rounded intrinsics so no FMA
-// contraction moves a sample across a cell boundary. The backward replaces
-// the TPU kernel's serialised read-modify-write of aliasing RoI windows
-// with f32 atomicAdd into the zeroed grads, so its sums are taken in
-// another order than the plain version's.
+// Both are bound by bytes on the H100. The forward writes B*N*49*C f32 (205
+// MB at B=8, N=512, C=256) and reads each RoI's window of cells: one block
+// per RoI, threads over channels, so a warp's loads and stores of one NHWC
+// cell are 32 neighbouring channels (coalesced). Every block computes the
+// RoI's level and its 14 sample coordinates per axis (lo/hi cell and
+// weight, the out-of-range mask folded into the weights) exactly as the
+// plain version's geometry, with explicitly rounded intrinsics so no FMA
+// contraction moves a sample across a cell boundary.
+//
+// The backward must read the pooled gradient (205 MB f32) and write the
+// level grads once (251 MB in bf16 at B=8). It is output-stationary, in
+// two launches, with no accumulator in device memory and no atomics:
+//   1. geometry: one warp per RoI stores its level, its sample geometry
+//      and, per axis, a 64-bit mask of the output tiles whose rows
+//      (columns) a sample corner of non-zero weight touches. The cells a
+//      RoI touches are the product of its touched rows and touched
+//      columns, so a tile receives gradient from a RoI exactly when both
+//      masks have its bit: a sliver that spans the level marks only the
+//      tiles under its samples, not its bounding window.
+//   2. gather: one 128-thread block per (image, level, 8x8-cell tile) and
+//      256 channels keeps the tile's f32 sums in shared memory (64 KB;
+//      each thread owns two channels of every cell, so the adds need no
+//      synchronisation). It filters its image's RoIs 512 at a time (four
+//      independent mask loads per thread) and keeps those whose masks hit
+//      the tile, in ascending index. A bin's gradient g is shared by its
+//      2x2 samples, so the bin adds g/4 * Wy[y] * Wx[x] to cell (y, x),
+//      Wy summing the weights of its y samples' corners per row and Wx per
+//      column: warp 0 stages, per bin row and column, the at most 4 cells
+//      of the tile they reach with those sums, and the block adds them for
+//      the bins that reach the tile, loading their gradient 8 bins at a
+//      time. It then writes the whole tile once in the feature dtype with
+//      16-byte stores, the zeros of untouched cells included.
+// On the card the gather is held back by its shared-memory adds and by the
+// latency of each (RoI, tile) pair (the RoI's geometry, then its
+// gradient), not by device memory. The factorised adds are about half the
+// per-corner ones, warp 0 loads the next RoI's geometry while the block
+// adds the current one, and the coarsest level's tiles, which gather the
+// most RoIs each, are dispatched first, so that none of them starts last.
+// Each cell's sum is taken in one fixed order (RoI index, then bin, then
+// row and column entry), so two calls on the same inputs give the same
+// bits. With more than 64 tiles along an axis, a mask bit stands for a run
+// of tiles: the filter then lets through RoIs that add nothing, and the
+// result is the same.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
@@ -40,13 +68,23 @@ constexpr int S = 2;        // sampling ratio
 constexpr int PS = P * S;   // sample points per axis
 constexpr int LEVELS = 4;   // P2..P5
 constexpr int MAX_THREADS = 256;
+constexpr int TH = 8;       // K2 tile rows (cells)
+constexpr int TW = 8;       // K2 tile columns
+constexpr int CS = 256;     // K2 channels per block
+constexpr int THREADS = CS / 2;  // K2 threads per block, two channels each
+constexpr int MASK_BITS = 64;
 
 struct Levels {
   const void* feat[LEVELS];
-  float* grad[LEVELS];
+  void* grad[LEVELS];
   int h[LEVELS];
   int w[LEVELS];
   float scale[LEVELS];  // 1 / stride
+  // K2's tiles: per image, level l's tiles are [tile0[l], tile0[l + 1])
+  int tiles_x[LEVELS];
+  int tile0[LEVELS + 1];
+  int per_y[LEVELS];    // tiles per mask bit, rows / columns
+  int per_x[LEVELS];
 };
 
 struct Geometry {
@@ -55,6 +93,12 @@ struct Geometry {
   int hi[2][PS];
   float wlo[2][PS];  // 0 where the sample is out of range
   float whi[2][PS];
+};
+
+struct TileMask {    // K2: the tiles of its level a RoI adds into
+  unsigned long long rows;
+  unsigned long long cols;
+  int lvl;
 };
 
 __device__ __forceinline__ float to_float(float v) { return v; }
@@ -142,85 +186,351 @@ __global__ void fwd_kernel(Levels L, const float* __restrict__ rois,
   }
 }
 
-__global__ void bwd_kernel(Levels L, const float* __restrict__ rois,
-                           const float* __restrict__ grad_out, int N,
-                           int C) {
+__device__ __forceinline__ unsigned long long warp_or(unsigned long long v) {
+  const unsigned hi = __reduce_or_sync(~0u, static_cast<unsigned>(v >> 32));
+  const unsigned lo = __reduce_or_sync(~0u, static_cast<unsigned>(v));
+  return (static_cast<unsigned long long>(hi) << 32) | lo;
+}
+
+// K2 pass 1: one warp per RoI -> its geometry and tile masks.
+__global__ void __launch_bounds__(32)
+bwd_geometry_kernel(Levels L, const float* __restrict__ rois,
+                    Geometry* __restrict__ geo, TileMask* __restrict__ masks) {
   __shared__ Geometry g;
   const int roi = blockIdx.x;
-  const int b = roi / N;
   roi_geometry(L, rois, roi, g);
+  const int t = threadIdx.x;
   const int lvl = g.lvl;
-  const int H = L.h[lvl];
-  const int W = L.w[lvl];
-  float* dst = L.grad[lvl] + static_cast<size_t>(b) * H * W * C;
-  const float* go = grad_out + static_cast<size_t>(roi) * P * P * C;
-  for (int c = threadIdx.x; c < C; c += blockDim.x) {
-    for (int py = 0; py < P; ++py) {
-      for (int px = 0; px < P; ++px) {
-        const float gq = go[(py * P + px) * C + c] * (1.0f / (S * S));
-        for (int sy = 0; sy < S; ++sy) {
-          const int iy = py * S + sy;
-          const float wy0 = g.wlo[0][iy], wy1 = g.whi[0][iy];
-          if (wy0 == 0.0f && wy1 == 0.0f) continue;
-          const size_t r0 = static_cast<size_t>(g.lo[0][iy]) * W;
-          const size_t r1 = static_cast<size_t>(g.hi[0][iy]) * W;
-          for (int sx = 0; sx < S; ++sx) {
-            const int ix = px * S + sx;
-            const float wx0 = g.wlo[1][ix], wx1 = g.whi[1][ix];
-            if (wx0 == 0.0f && wx1 == 0.0f) continue;
-            const int x0 = g.lo[1][ix], x1 = g.hi[1][ix];
-            const float w00 = wy0 * wx0, w01 = wy0 * wx1;
-            const float w10 = wy1 * wx0, w11 = wy1 * wx1;
-            if (w00 != 0.0f) atomicAdd(&dst[(r0 + x0) * C + c], w00 * gq);
-            if (w01 != 0.0f) atomicAdd(&dst[(r0 + x1) * C + c], w01 * gq);
-            if (w10 != 0.0f) atomicAdd(&dst[(r1 + x0) * C + c], w10 * gq);
-            if (w11 != 0.0f) atomicAdd(&dst[(r1 + x1) * C + c], w11 * gq);
-          }
+  unsigned long long bits = 0;
+  if (t < 2 * PS) {
+    const int axis = t / PS;
+    const int i = t % PS;
+    const int tile = axis ? TW : TH;
+    const int per = axis ? L.per_x[lvl] : L.per_y[lvl];
+    if (g.wlo[axis][i] != 0.0f) bits |= 1ull << (g.lo[axis][i] / tile / per);
+    if (g.whi[axis][i] != 0.0f) bits |= 1ull << (g.hi[axis][i] / tile / per);
+  }
+  const unsigned long long rows = warp_or(t < PS ? bits : 0ull);
+  const unsigned long long cols = warp_or(t < PS ? 0ull : bits);
+  if (t == 0) masks[roi] = TileMask{rows, cols, lvl};
+  const int* src = reinterpret_cast<const int*>(&g);
+  int* dst = reinterpret_cast<int*>(geo + roi);
+  for (int k = t; k < static_cast<int>(sizeof(Geometry) / 4); k += 32) {
+    dst[k] = src[k];
+  }
+}
+
+// 16-byte stores of the tile's sums in the output dtype
+__device__ __forceinline__ void store_vec(float* dst, const float* src) {
+  *reinterpret_cast<float4*>(dst) = *reinterpret_cast<const float4*>(src);
+}
+__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // lo at the lower address
+  return *reinterpret_cast<const unsigned*>(&v);
+}
+__device__ __forceinline__ void store_vec(__nv_bfloat16* dst,
+                                          const float* src) {
+  const float4 a = *reinterpret_cast<const float4*>(src);
+  const float4 b = *reinterpret_cast<const float4*>(src + 4);
+  *reinterpret_cast<uint4*>(dst) = make_uint4(
+      pack_bf16(a.x, a.y), pack_bf16(a.z, a.w), pack_bf16(b.x, b.y),
+      pack_bf16(b.z, b.w));
+}
+__device__ __forceinline__ void store_one(float* dst, float v) { *dst = v; }
+__device__ __forceinline__ void store_one(__nv_bfloat16* dst, float v) {
+  *dst = __float2bfloat16_rn(v);
+}
+
+// K2: what one RoI adds to one tile. A bin's gradient g is shared by its
+// S x S samples, so the bin adds g/4 * Wy[y] * Wx[x] to cell (y, x), where
+// Wy[y] sums the weights of the bin's y samples' corners at row y (Wx the
+// same for columns): per bin row and column at most 4 cells of the tile.
+struct __align__(16) Corners {
+  int cell[2][P][4];   // [axis y=0 / x=1][bin row / column][entry]
+  float w[2][P][4];    // summed sample weights of those cells
+  int bins[P * P];     // reached bins, ascending: bin | ny << 8 | nx << 12
+  int n_bins;
+};
+
+struct Samples {       // one bin row's (column's) two samples
+  int lo[S], hi[S];
+  float wlo[S], whi[S];
+};
+
+// warp 0: lane axis * P + p < 2 * P starts loading the samples of bin row
+// (axis 0) or column (axis 1) p of a RoI's geometry
+__device__ __forceinline__ Samples fetch(const Geometry* __restrict__ geo,
+                                         size_t roi, int lane) {
+  Samples s{};
+  if (lane < 2 * P) {
+    const int axis = lane / P, p = lane % P;
+    const Geometry& g = geo[roi];
+#pragma unroll
+    for (int k = 0; k < S; ++k) {
+      s.lo[k] = g.lo[axis][p * S + k];
+      s.hi[k] = g.hi[axis][p * S + k];
+      s.wlo[k] = g.wlo[axis][p * S + k];
+      s.whi[k] = g.whi[axis][p * S + k];
+    }
+  }
+  return s;
+}
+
+// warp 0: the fetched samples' corners in tile coordinates, equal cells
+// merged in a fixed order (sample 0 lo, hi, sample 1 lo, hi), corners of
+// zero weight or outside the tile dropped; then the bins whose row and
+// column both reach the tile
+__device__ __forceinline__ void stage(Corners& c, const Samples& s, int lane,
+                                      int oy, int ox) {
+  int n = 0;
+  if (lane < 2 * P) {
+    const int axis = lane / P, p = lane % P;
+    const int origin = axis ? ox : oy, extent = axis ? TW : TH;
+    int cells[4] = {0, 0, 0, 0};
+    float ws[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+    for (int k = 0; k < 2 * S; ++k) {
+      const int cell = (k % 2 ? s.hi[k / 2] : s.lo[k / 2]) - origin;
+      const float w = k % 2 ? s.whi[k / 2] : s.wlo[k / 2];
+      if (w == 0.0f || cell < 0 || cell >= extent) continue;
+      bool merged = false;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        if (e < n && cells[e] == cell) {
+          ws[e] += w;
+          merged = true;
+        }
+      }
+      if (merged) continue;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        if (e == n) {
+          cells[e] = cell;
+          ws[e] = w;
+        }
+      }
+      ++n;
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      c.cell[axis][p][e] = cells[e];
+      c.w[axis][p][e] = ws[e];
+    }
+  }
+  int count = 0;
+  for (int bin = lane; bin < 64; bin += 32) {
+    const int ny = __shfl_sync(~0u, n, min(bin / P, P - 1));
+    const int nx = __shfl_sync(~0u, n, P + bin % P);
+    const bool reach = bin < P * P && ny > 0 && nx > 0;
+    const unsigned v = __ballot_sync(~0u, reach);
+    if (reach) {
+      c.bins[count + __popc(v & ((1u << lane) - 1))] = bin | ny << 8 | nx << 12;
+    }
+    count += __popc(v);
+  }
+  if (lane == 0) c.n_bins = count;
+}
+
+// one thread's two channels: what the RoI adds to each cell of the tile,
+// bin by bin, the gradient of GATHER bins loaded at once. go: the RoI's
+// gradient at the thread's first channel; `even`: C is even, so the pair
+// is one 8-byte load (else the second channel is loaded alone, or is 0 past
+// C).
+constexpr int GATHER = 8;
+
+__device__ __forceinline__ void accumulate(float2* mine, const Corners& c,
+                                           const float* go, int C, bool even,
+                                           bool second) {
+  for (int k0 = 0; k0 < c.n_bins; k0 += GATHER) {
+    float2 gq[GATHER];
+#pragma unroll
+    for (int q = 0; q < GATHER; ++q) {
+      float2 v = make_float2(0.0f, 0.0f);
+      if (k0 + q < c.n_bins) {
+        const float* p = go + (c.bins[k0 + q] & 63) * C;
+        v = even ? *reinterpret_cast<const float2*>(p)
+                 : make_float2(p[0], second ? p[1] : 0.0f);
+      }
+      gq[q] = make_float2(v.x * (1.0f / (S * S)), v.y * (1.0f / (S * S)));
+    }
+#pragma unroll
+    for (int q = 0; q < GATHER; ++q) {
+      if (k0 + q >= c.n_bins) break;
+      const int packed = c.bins[k0 + q];
+      const int py = (packed & 63) / P, px = (packed & 63) % P;
+      const int ny = (packed >> 8) & 15, nx = packed >> 12;
+      const int4 yc = *reinterpret_cast<const int4*>(c.cell[0][py]);
+      const float4 yw = *reinterpret_cast<const float4*>(c.w[0][py]);
+      const int4 xc = *reinterpret_cast<const int4*>(c.cell[1][px]);
+      const float4 xw = *reinterpret_cast<const float4*>(c.w[1][px]);
+      const int ycs[4] = {yc.x, yc.y, yc.z, yc.w};
+      const float yws[4] = {yw.x, yw.y, yw.z, yw.w};
+      const int xcs[4] = {xc.x, xc.y, xc.z, xc.w};
+      const float xws[4] = {xw.x, xw.y, xw.z, xw.w};
+#pragma unroll
+      for (int a = 0; a < 4; ++a) {
+        if (a >= ny) break;
+        const float2 wg = make_float2(yws[a] * gq[q].x, yws[a] * gq[q].y);
+        float2* row = mine + ycs[a] * TW * THREADS;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          if (e >= nx) break;
+          float2& m = row[xcs[e] * THREADS];
+          m.x += wg.x * xws[e];
+          m.y += wg.y * xws[e];
         }
       }
     }
   }
 }
 
-// dst[i] = bf16(src[i]), round to nearest even, 4 elements per step.
-struct alignas(8) Bf16x4 {
-  __nv_bfloat162 lo, hi;
-};
+constexpr int FILTER = 4;  // RoIs each thread filters per pass
 
-__global__ void cast_bf16_kernel(const float* __restrict__ src,
-                                 __nv_bfloat16* __restrict__ dst, size_t n) {
-  const size_t first = static_cast<size_t>(blockIdx.x) * blockDim.x +
-                       threadIdx.x;
-  const size_t stride = static_cast<size_t>(gridDim.x) * blockDim.x;
-  const size_t n4 = n / 4;
-  for (size_t i = first; i < n4; i += stride) {
-    const float4 v = reinterpret_cast<const float4*>(src)[i];
-    reinterpret_cast<Bf16x4*>(dst)[i] =
-        Bf16x4{__floats2bfloat162_rn(v.x, v.y), __floats2bfloat162_rn(v.z, v.w)};
+constexpr int ACC_BYTES = TH * TW * CS * 4;  // the tile's f32 sums
+
+// K2 pass 2: grid (every tile of every image, slices of CS channels),
+// THREADS threads, ACC_BYTES of dynamic shared memory.
+template <typename T>
+__global__ void __launch_bounds__(THREADS, 3)
+bwd_gather_kernel(Levels L, const Geometry* __restrict__ geo,
+                  const TileMask* __restrict__ masks,
+                  const float* __restrict__ grad_out, int N, int C) {
+  extern __shared__ float4 dynamic[];
+  float* acc = reinterpret_cast<float*>(dynamic);  // [cell][channel]
+  __shared__ int list[FILTER * THREADS];
+  __shared__ int warp_hits[FILTER][THREADS / 32];
+  __shared__ Corners corners[2];  // the current RoI's and the next one's
+
+  // the coarsest level's tiles first, of every image: they gather the most
+  // RoIs each, and started last they would leave the card idle behind them
+  const int B = gridDim.x / L.tile0[LEVELS];
+  int lvl = LEVELS - 1, idx = blockIdx.x;
+  while (lvl > 0 && idx >= B * (L.tile0[lvl + 1] - L.tile0[lvl])) {
+    idx -= B * (L.tile0[lvl + 1] - L.tile0[lvl]);
+    --lvl;
   }
-  for (size_t i = n4 * 4 + first; i < n; i += stride) {
-    dst[i] = __float2bfloat16_rn(src[i]);
+  const int b = idx / (L.tile0[lvl + 1] - L.tile0[lvl]);
+  const int tile = idx % (L.tile0[lvl + 1] - L.tile0[lvl]);
+  const int ty = tile / L.tiles_x[lvl];
+  const int tx = tile % L.tiles_x[lvl];
+  const int H = L.h[lvl], W = L.w[lvl];
+  const int oy = ty * TH, ox = tx * TW;
+  const unsigned long long ybit = 1ull << (ty / L.per_y[lvl]);
+  const unsigned long long xbit = 1ull << (tx / L.per_x[lvl]);
+  const int c0 = blockIdx.y * CS;
+  const int t = threadIdx.x;
+  const int lane = t % 32, warp = t / 32;
+  const bool live = c0 + 2 * t < C;
+  const bool even = C % 2 == 0, second = c0 + 2 * t + 1 < C;
+  const size_t roi0 = static_cast<size_t>(b) * N;
+
+  // this thread's two channels of every cell
+  float2* mine = reinterpret_cast<float2*>(acc) + t;
+  for (int cell = 0; cell < TH * TW; ++cell) {
+    mine[cell * THREADS] = make_float2(0.0f, 0.0f);
+  }
+
+  for (int first = 0; first < N; first += FILTER * THREADS) {
+    // the RoIs of this pass whose masks hit the tile, in ascending index
+    bool hit[FILTER];
+#pragma unroll
+    for (int q = 0; q < FILTER; ++q) {
+      const int r = first + q * THREADS + t;
+      hit[q] = false;
+      if (r < N) {
+        const TileMask m = masks[roi0 + r];
+        hit[q] = m.lvl == lvl && (m.rows & ybit) && (m.cols & xbit);
+      }
+    }
+    unsigned ballot[FILTER];
+#pragma unroll
+    for (int q = 0; q < FILTER; ++q) {
+      ballot[q] = __ballot_sync(~0u, hit[q]);
+      if (lane == 0) warp_hits[q][warp] = __popc(ballot[q]);
+    }
+    __syncthreads();
+    int count = 0;
+#pragma unroll
+    for (int q = 0; q < FILTER; ++q) {
+      for (int w = 0; w < THREADS / 32; ++w) {
+        if (w == warp && hit[q]) {
+          list[count + __popc(ballot[q] & ((1u << lane) - 1))] =
+              first + q * THREADS + t;
+        }
+        count += warp_hits[q][w];
+      }
+    }
+    __syncthreads();
+    if (count == 0) continue;
+    if (warp == 0) stage(corners[0], fetch(geo, roi0 + list[0], lane), lane, oy, ox);
+    __syncthreads();
+    for (int k = 0; k < count; ++k) {
+      // warp 0 loads the next RoI's geometry while the block adds this one
+      const bool more = k + 1 < count;
+      Samples next{};
+      if (warp == 0 && more) next = fetch(geo, roi0 + list[k + 1], lane);
+      if (live) {
+        accumulate(mine, corners[k & 1],
+                   grad_out + (roi0 + list[k]) * P * P * C + c0 + 2 * t, C,
+                   even, second);
+      }
+      if (warp == 0 && more) stage(corners[(k + 1) & 1], next, lane, oy, ox);
+      __syncthreads();
+    }
+  }
+
+  // the whole tile once, in the feature dtype
+  __syncthreads();
+  T* dst = static_cast<T*>(L.grad[lvl]) + static_cast<size_t>(b) * H * W * C;
+  const int rows = min(TH, H - oy), cols = min(TW, W - ox);
+  const int width = min(CS, C - c0);
+  constexpr int VEC = 16 / sizeof(T);
+  if (C % VEC == 0 && width % VEC == 0) {
+    const int per_cell = width / VEC;
+    for (int e = t; e < TH * TW * per_cell; e += THREADS) {
+      const int cell = e / per_cell, v = (e % per_cell) * VEC;
+      const int y = cell / TW, x = cell % TW;
+      if (y >= rows || x >= cols) continue;
+      store_vec(dst + (static_cast<size_t>(oy + y) * W + ox + x) * C + c0 + v,
+                acc + cell * CS + v);
+    }
+  } else {
+    for (int e = t; e < TH * TW * width; e += THREADS) {
+      const int cell = e / width, v = e % width;
+      const int y = cell / TW, x = cell % TW;
+      if (y >= rows || x >= cols) continue;
+      store_one(dst + (static_cast<size_t>(oy + y) * W + ox + x) * C + c0 + v,
+                acc[cell * CS + v]);
+    }
   }
 }
 
-// grad: the f32 level grads back to back (level l at the sum of the
-// earlier levels' B*h*w*C), or null.
-Levels make_levels(const void* const* feat, float* grad, int B, int C,
-                   const int* h, const int* w, const float* scale) {
+// grad: the level grads back to back (level l at the sum of the earlier
+// levels' B*h*w*C elements of `elem` bytes), or null.
+Levels make_levels(const void* const* feat, void* grad, size_t elem, int B,
+                   int C, const int* h, const int* w, const float* scale) {
   Levels L;
   size_t offset = 0;
+  L.tile0[0] = 0;
   for (int l = 0; l < LEVELS; ++l) {
     L.feat[l] = feat ? feat[l] : nullptr;
-    L.grad[l] = grad ? grad + offset : nullptr;
+    L.grad[l] = grad ? static_cast<char*>(grad) + offset * elem : nullptr;
     offset += static_cast<size_t>(B) * h[l] * w[l] * C;
     L.h[l] = h[l];
     L.w[l] = w[l];
     L.scale[l] = scale[l];
+    const int ty = (h[l] + TH - 1) / TH, tx = (w[l] + TW - 1) / TW;
+    L.tiles_x[l] = tx;
+    L.tile0[l + 1] = L.tile0[l] + ty * tx;
+    L.per_y[l] = (ty + MASK_BITS - 1) / MASK_BITS;
+    L.per_x[l] = (tx + MASK_BITS - 1) / MASK_BITS;
   }
   return L;
 }
 
 int threads_for(int C) { return C < MAX_THREADS ? ((C + 31) / 32) * 32 : MAX_THREADS; }
+
+size_t align16(size_t n) { return (n + 15) / 16 * 16; }
 
 }  // namespace
 
@@ -235,7 +545,7 @@ extern "C" int roi_align_fwd(const void* f0, const void* f1, const void* f2,
   const int h[LEVELS] = {h0, h1, h2, h3};
   const int w[LEVELS] = {w0, w1, w2, w3};
   const float sc[LEVELS] = {s0, s1, s2, s3};
-  Levels L = make_levels(feat, nullptr, B, C, h, w, sc);
+  Levels L = make_levels(feat, nullptr, 0, B, C, h, w, sc);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int blocks = B * N;
   if (blocks == 0) return 0;
@@ -249,11 +559,16 @@ extern "C" int roi_align_fwd(const void* f0, const void* f1, const void* f2,
   return static_cast<int>(cudaGetLastError());
 }
 
-// acc: f32 buffer of the four level grads back to back (sum over levels of
-// B*h*w*C); it is zeroed and accumulated into. With is_bf16, out (same
-// layout, bf16) receives acc cast to bf16; otherwise acc is the result and
-// out is unused.
-extern "C" int roi_align_bwd(const void* grad_out, void* acc, void* out,
+// Bytes of scratch roi_align_bwd needs for n_rois RoIs.
+extern "C" long long roi_align_bwd_scratch(int n_rois) {
+  return static_cast<long long>(align16(sizeof(TileMask) * n_rois) +
+                                sizeof(Geometry) * n_rois);
+}
+
+// out: the four level grads back to back, in the feature dtype (bf16 with
+// is_bf16, else f32); every element is written. scratch: at least
+// roi_align_bwd_scratch(B * N) bytes, 16-byte aligned.
+extern "C" int roi_align_bwd(const void* grad_out, void* scratch, void* out,
                              int h0, int w0, int h1, int w1, int h2, int w2,
                              int h3, int w3, float s0, float s1, float s2,
                              float s3, const void* rois, int B, int N, int C,
@@ -261,26 +576,24 @@ extern "C" int roi_align_bwd(const void* grad_out, void* acc, void* out,
   const int h[LEVELS] = {h0, h1, h2, h3};
   const int w[LEVELS] = {w0, w1, w2, w3};
   const float sc[LEVELS] = {s0, s1, s2, s3};
-  float* acc_f = static_cast<float*>(acc);
-  Levels L = make_levels(nullptr, acc_f, B, C, h, w, sc);
-  size_t total = 0;
-  for (int l = 0; l < LEVELS; ++l) {
-    total += static_cast<size_t>(B) * h[l] * w[l] * C;
-  }
+  Levels L = make_levels(nullptr, out, is_bf16 ? 2 : 4, B, C, h, w, sc);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = cudaMemsetAsync(acc, 0, total * sizeof(float), s);
+  const int n_rois = B * N;
+  TileMask* masks = static_cast<TileMask*>(scratch);
+  Geometry* geo = reinterpret_cast<Geometry*>(
+      static_cast<char*>(scratch) + align16(sizeof(TileMask) * n_rois));
+  if (n_rois > 0) {
+    bwd_geometry_kernel<<<n_rois, 32, 0, s>>>(
+        L, static_cast<const float*>(rois), geo, masks);
+  }
+  const dim3 grid(B * L.tile0[LEVELS], (C + CS - 1) / CS);
+  if (grid.x == 0 || grid.y == 0) return static_cast<int>(cudaGetLastError());
+  const float* g = static_cast<const float*>(grad_out);
+  const auto kernel = is_bf16 ? bwd_gather_kernel<__nv_bfloat16>
+                              : bwd_gather_kernel<float>;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, ACC_BYTES);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int blocks = B * N;
-  if (blocks > 0) {
-    bwd_kernel<<<blocks, threads_for(C), 0, s>>>(
-        L, static_cast<const float*>(rois),
-        static_cast<const float*>(grad_out), N, C);
-  }
-  if (is_bf16 && total > 0) {
-    const size_t want = (total / 4 + MAX_THREADS - 1) / MAX_THREADS;
-    const int cast_blocks = static_cast<int>(want < 4096 ? want + 1 : 4096);
-    cast_bf16_kernel<<<cast_blocks, MAX_THREADS, 0, s>>>(
-        acc_f, static_cast<__nv_bfloat16*>(out), total);
-  }
+  kernel<<<grid, THREADS, ACC_BYTES, s>>>(L, geo, masks, g, N, C);
   return static_cast<int>(cudaGetLastError());
 }

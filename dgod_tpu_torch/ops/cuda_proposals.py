@@ -2,10 +2,13 @@
 small-box mask + exact greedy NMS over every (image, level) in one call.
 
 Replaces dgod_tpu/ops/pallas_proposals.py::_kernel (via fused_decode_nms).
-Three launches on the current stream (decode, IoU bitmask, per-(image,
-level) scan), no host sync. Bound on the H100 by operations: ~14 f32 ops
-per IoU of a kept box with a later valid box of its level; the serial scan
-is not in the bound. See the source for the design. The plain version is
+Three launches on the current stream, no host sync: decode; the IoU
+bitmask over each level's upper triangle only; and a scan that decides 64
+rows per step, one block per (image, level), so it waits on global memory
+about twice per 64 rows instead of once per kept row. Bound on the H100 by
+operations: ~14 f32 ops per IoU of a kept box with a later valid box of
+its level; the serial scan is not in the bound. See the source for the
+design. The plain version is
 `proposals.decode_nms_plain`; the keep mask must agree exactly and the
 boxes to rounding (they are expected to be bit-equal).
 """

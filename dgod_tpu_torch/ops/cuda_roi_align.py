@@ -5,12 +5,16 @@ K1 replaces dgod_tpu/ops/pallas_roi_align.py::_fwd_kernel/_fwd_kernel_deep
 (via _roi_align_fwd); K2 replaces _bwd_kernel/_bwd_kernel_deep (via
 _roi_align_bwd). Both are bound by bytes on the H100: K1 writes the f32
 pooled features and reads each RoI's window of cells, K2 reads the pooled
-gradient and writes the level grads in the feature dtype. One block per RoI
-with threads over channels keeps every load and store of an NHWC cell
-coalesced; K2 adds into zeroed f32 level grads with atomics where the TPU
-kernel serialised aliasing RoI windows, then casts them to the feature
-dtype, all in one call. The RoI gradient is zero, as in the TPU kernel's
-VJP. The plain version is `roi_align.roi_align_plain`.
+gradient and writes the level grads in the feature dtype. K1 runs one block
+per RoI with threads over channels, so every load and store of an NHWC cell
+is coalesced. K2 is output-stationary where the TPU kernel serialised
+aliasing RoI windows: one pass stores each RoI's sample geometry and the
+masks of the 8x8-cell tiles it touches, a second gives each (image, level,
+tile) one block that sums its RoIs' contributions over 256 channels in
+shared memory, in ascending RoI order, and writes the tile once in the
+feature dtype. No f32 buffer, memset, cast pass or atomics; two calls on
+the same inputs give the same bits. The RoI gradient is zero, as in the
+TPU kernel's VJP. The plain version is `roi_align.roi_align_plain`.
 """
 
 from __future__ import annotations
@@ -42,8 +46,11 @@ def _kernels():
                         + [ctypes.c_float] * 4 + [ctypes.c_void_p]
                         + [ctypes.c_int] * 4 + [ctypes.c_void_p])
         bwd.restype = ctypes.c_int
-        _fns["fwd"], _fns["bwd"] = fwd, bwd
-    return _fns["fwd"], _fns["bwd"]
+        scratch = lib.roi_align_bwd_scratch
+        scratch.argtypes = [ctypes.c_int]
+        scratch.restype = ctypes.c_longlong
+        _fns.update(fwd=fwd, bwd=bwd, scratch=scratch)
+    return _fns
 
 
 def _check(feats: Sequence[torch.Tensor], rois: torch.Tensor):
@@ -88,7 +95,7 @@ def roi_align_fwd_cuda(feats, rois) -> torch.Tensor:
     C = feats[0].shape[-1]
     out = torch.empty((B, N, 7, 7, C), dtype=torch.float32,
                       device=rois.device)
-    fwd, _ = _kernels()
+    fwd = _kernels()["fwd"]
     stream = torch.cuda.current_stream(rois.device).cuda_stream
     rc = fwd(*[f.data_ptr() for f in feats], *_dims(feats),
              rois.data_ptr(), out.data_ptr(), B, N, C,
@@ -100,7 +107,8 @@ def roi_align_fwd_cuda(feats, rois) -> torch.Tensor:
 
 def roi_align_bwd_cuda(feats, rois, grad_out):
     """K2: grad_out [B,N,7,7,C] f32 -> per-level grads [B,H,W,C] in the
-    feature dtype (accumulated in f32 with atomics, then cast)."""
+    feature dtype (each cell summed in f32 in a fixed order, rounded
+    once)."""
     global bwd_launches
     _check(feats, rois)
     B, N = rois.shape[:2]
@@ -111,14 +119,17 @@ def roi_align_bwd_cuda(feats, rois, grad_out):
                          "on the rois' device")
     grad_out = grad_out.contiguous()
     sizes = [f.numel() for f in feats]
-    # the kernel zeroes `acc`; with bf16 features it casts `acc` into `out`
-    acc = torch.empty(sum(sizes), dtype=torch.float32, device=rois.device)
+    # the kernel writes every element of `out`; `scratch` holds the RoIs'
+    # geometry and tile masks
+    out = torch.empty(sum(sizes), dtype=feats[0].dtype, device=rois.device)
+    fns = _kernels()
+    scratch = torch.empty(fns["scratch"](B * N), dtype=torch.uint8,
+                          device=rois.device)
     is_bf16 = feats[0].dtype == torch.bfloat16
-    out = torch.empty_like(acc, dtype=torch.bfloat16) if is_bf16 else acc
-    _, bwd = _kernels()
     stream = torch.cuda.current_stream(rois.device).cuda_stream
-    rc = bwd(grad_out.data_ptr(), acc.data_ptr(), out.data_ptr(),
-             *_dims(feats), rois.data_ptr(), B, N, C, int(is_bf16), stream)
+    rc = fns["bwd"](grad_out.data_ptr(), scratch.data_ptr(), out.data_ptr(),
+                    *_dims(feats), rois.data_ptr(), B, N, C, int(is_bf16),
+                    stream)
     _build.check_launch(rc, "roi_align_bwd")
     bwd_launches += 1
     return [g.view(f.shape) for g, f in zip(out.split(sizes), feats)]

@@ -38,9 +38,13 @@ from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
 import chip_smoke as cs  # noqa: E402
 
-# kernel name -> category, first match wins
+# kernel name -> category, first match wins; K2's pattern also takes the
+# names of its earlier atomic design (bwd_kernel, cast_bf16_kernel), so that
+# an older checkout profiles into the same categories
 CATEGORIES = (
-    ("K1/K2 roi_align (port)", r"fwd_kernel|bwd_kernel|cast_bf16_kernel"),
+    ("K1 roi_align_fwd (port)", r"\bfwd_kernel"),
+    ("K2 roi_align_bwd (port)",
+     r"bwd_(geometry|gather)_kernel|\bbwd_kernel|cast_bf16_kernel"),
     ("K4 fcos_match (port)", r"fcos_match_kernel"),
     ("K3 iou_match (port)", r"best_kernel|match_kernel|init_best"),
     ("K6 nms_topk (port)", r"nms_topk_kernel"),
@@ -154,6 +158,12 @@ def main() -> int:
     print("device time by category (ms, share of busy):")
     for cat, ms in by_cat.most_common():
         print(f"  {ms:9.2f}  {ms / busy_ms:6.3f}  {cat}")
+    print("the port's kernels (ms, launches, category, name):")
+    for e in events:
+        cat = category(e.key)
+        if "(port)" in cat:
+            print(f"  {device_time_us(e) / 1e3:9.3f} {e.count:6d}  {cat}: "
+                  f"{e.key[:80]}")
     print("top kernels by device time (ms, launches, name):")
     for e in events[:25]:
         print(f"  {device_time_us(e) / 1e3:9.2f} {e.count:6d}  {e.key[:110]}")

@@ -281,3 +281,90 @@ def test_generate_proposals_matches_jax(training):
                                np.asarray(j_boxes)[j_valid], rtol=1e-6,
                                atol=1e-4)
     np.testing.assert_array_equal(t_scores.numpy(), np.asarray(j_scores))
+
+
+# -- K5's 64-rows-per-step scan (csrc/proposals.cu), modelled on the CPU ------
+
+def k5_mask_words(boxes, valid, rng):
+    """One level's IoU bitmask as K5's mask pass writes it: each block
+    takes a row tile rt and column tiles rt + 4g .. rt + 4g + 3 of the upper
+    triangle, enumerated as the kernel enumerates them; row i's word ct
+    gets bit c when ct*64 + c > i and IoU > 0.7 (IEEE division). The words
+    of invalid rows and below the diagonal are never written: they hold
+    random bits here, as torch.empty leaves them."""
+    n = len(boxes)
+    words = -(-n // 64)
+    m = rng.randint(0, 2 ** 62, (n, words)).astype(np.uint64)
+    over = _iou_tests(boxes[:, None], boxes[None])[0]
+    groups = [-(-(words - rt) // 4) for rt in range(words)]
+    written = set()
+    for block in range(sum(groups)):
+        idx, rt = block, 0
+        while rt < words and idx >= groups[rt]:
+            idx -= groups[rt]
+            rt += 1
+        for ct in range(rt + 4 * idx, min(words, rt + 4 * idx + 4)):
+            cols = np.arange(ct * 64, min(n, ct * 64 + 64))
+            for i in range(rt * 64, min(n, rt * 64 + 64)):
+                if valid[i]:
+                    bits = over[i, cols] & (cols > i)
+                    m[i, ct] = np.bitwise_or.reduce(
+                        bits.astype(np.uint64) << (cols - ct * 64).astype(
+                            np.uint64), initial=np.uint64(0))
+                    written.add((i, ct))
+    want = {(i, ct) for i in range(n) if valid[i]
+            for ct in range(i // 64, words)}
+    assert written == want  # the triangle, each word once
+    return m
+
+
+def k5_scan(m, valid):
+    """K5's scan: the removed set starts as the invalid rows (and those
+    past n); tile t is resolved row by row from the set's word t and the
+    tile's 64 diagonal words, loaded whole (an invalid row's are random,
+    and never used: the row starts removed), then the kept rows' later
+    words are ORed into the set."""
+    n, words = m.shape
+    invalid = np.ones(words * 64, bool)
+    invalid[:n] = ~valid
+    removed = [int(sum(1 << j for j in range(64) if invalid[w * 64 + j]))
+               for w in range(words)]
+    keep = np.zeros(n, bool)
+    for t in range(words):
+        diag = [int(m[i, t]) if i < n else 0
+                for i in range(t * 64, t * 64 + 64)]
+        r, kept = removed[t], 0
+        for j in range(64):
+            if not (r >> j) & 1:
+                kept |= 1 << j
+                r |= diag[j]
+        rows = [t * 64 + j for j in range(64) if (kept >> j) & 1]
+        keep[rows] = True
+        for w in range(t + 1, words):
+            for i in rows:
+                removed[w] |= int(m[i, w])
+    return keep
+
+
+@pytest.mark.parametrize("levels", sorted(LEVELS) + ["k200"])
+def test_k5_scan_model_is_nms_mask_blocked(levels):
+    """Near-0.7 nested pairs at adjacent ranks, runs of equal scores and
+    an all-invalid level: the 64-rows-per-step scan over the kernel's
+    bitmask keeps exactly what nms_mask_blocked keeps."""
+    level_sizes = LEVELS.get(levels, (200, 64, 70))
+    inputs = make_inputs(7, 2, level_sizes)
+    boxes, keep = _plain(*inputs, level_sizes)
+    valid = t_box.small_box_mask(torch.from_numpy(boxes), 1e-3).numpy()
+    rng = np.random.RandomState(8)
+    got = np.zeros_like(keep)
+    for b in range(boxes.shape[0]):
+        start = 0
+        for n in level_sizes:
+            sl = slice(start, start + n)
+            m = k5_mask_words(boxes[b, sl], valid[b, sl], rng)
+            got[b, sl] = k5_scan(m, valid[b, sl])
+            start += n
+    np.testing.assert_array_equal(got, keep)
+    assert not got[0, -level_sizes[-1]:].any()  # the all-invalid level
+    assert got[1, -level_sizes[-1]:].any()
+    assert (valid & ~got).any()  # some valid box was suppressed

@@ -154,3 +154,190 @@ def test_grad_flows_only_to_touched_cells():
     nz = np.argwhere(d[0][0].abs().sum(-1).numpy() > 0)
     assert nz[:, 0].min() >= 9 and nz[:, 0].max() <= 21
     assert nz[:, 1].min() >= 9 and nz[:, 1].max() <= 21
+
+
+# -- K2's tiled gather (csrc/roi_align.cu), modelled on the CPU ---------------
+#
+# The kernel's geometry pass marks, per RoI and axis, the 8-cell tiles that a
+# sample corner of non-zero weight touches (one bit per tile, or per run of
+# tiles past 64 tiles); its gather gives each tile the RoIs whose two masks
+# hit it, in ascending order. A bin's gradient is shared by its 2x2 samples,
+# so per bin row (column) the kernel merges its two samples' corners inside
+# the tile into at most 4 (cell, summed weight) entries and adds
+# g/4 * wy * wx to every (row entry, column entry) cell. The model below
+# follows those steps on the plain version's sample geometry.
+
+K2_TILE = 8
+K2_MASK_BITS = 64
+FULL_CANVAS = (608, 1216)
+
+
+def _k2_geometry(rois, shapes):
+    """rois [n,4] -> (level [n], per axis (y, x): lo, hi, w_lo, w_hi
+    [n,14], out-of-range samples weighted 0), as roi_align_plain samples."""
+    rois = torch.from_numpy(rois)
+    lvl = T.level_assignment(rois)
+    scale = torch.tensor([1.0 / s for s in STRIDES])[lvl]
+    sizes = torch.tensor(shapes)[lvl]  # [n, 2] (h, w)
+    ar = torch.arange(14, dtype=torch.float32)
+    steps = torch.div(ar, 2, rounding_mode="floor") + (ar % 2 + 0.5) / 2
+    axes = []
+    for axis, (a, b) in enumerate(((1, 3), (0, 2))):
+        c1, c2 = rois[:, a] * scale, rois[:, b] * scale
+        step = torch.clamp(c2 - c1, min=1.0) / T._const(7, c1)
+        coord = c1[:, None] + steps[None] * step[:, None]
+        lo, hi, wlo, whi, ok = T._bilinear_params(coord,
+                                                  sizes[:, axis:axis + 1])
+        axes.append(tuple(x.numpy() for x in (lo, hi, wlo * ok, whi * ok)))
+    return lvl.numpy(), axes
+
+
+def _k2_per(size):
+    """Tiles per mask bit along an axis of `size` cells."""
+    tiles = -(-size // K2_TILE)
+    return -(-tiles // K2_MASK_BITS)
+
+
+def _k2_masks(lvl, axes, shapes):
+    """Per RoI, (rows, cols): the tile-mask bits the geometry pass sets."""
+    masks = []
+    for r, l in enumerate(lvl):
+        pair = []
+        for axis, (lo, hi, wlo, whi) in enumerate(axes):
+            per = _k2_per(shapes[l][axis])
+            bits = 0
+            for c, w in ((lo[r], wlo[r]), (hi[r], whi[r])):
+                for cell in c[w != 0]:
+                    bits |= 1 << (int(cell) // K2_TILE // per)
+            pair.append(bits)
+        masks.append(pair)
+    return masks
+
+
+def _k2_hits(mask_pair, l, lvl_r, ty, tx, shapes):
+    h, w = shapes[l]
+    return (lvl_r == l and (mask_pair[0] >> (ty // _k2_per(h))) & 1
+            and (mask_pair[1] >> (tx // _k2_per(w))) & 1)
+
+
+def _k2_entries(axis, r, p, origin):
+    """Bin row (axis 0) or column (axis 1) p of RoI r in a tile starting at
+    cell `origin`: its two samples' corners of non-zero weight inside the
+    tile, equal cells merged, weights summed in the kernel's order (sample
+    0 lo, hi, sample 1 lo, hi)."""
+    lo, hi, wlo, whi = axis
+    cells, ws = [], []
+    for i in (2 * p, 2 * p + 1):
+        for c, w in ((lo[r, i], wlo[r, i]), (hi[r, i], whi[r, i])):
+            cell = int(c) - origin
+            if w == 0 or not 0 <= cell < K2_TILE:
+                continue
+            if cell in cells:
+                ws[cells.index(cell)] += w
+            else:
+                cells.append(cell)
+                ws.append(np.float32(w))
+    assert len(cells) <= 4
+    return list(zip(cells, ws))
+
+
+def _k2_gather(lvl, axes, masks, g, shapes):
+    """g [n,7,7,C] -> per-level grads [H,W,C], one tile at a time."""
+    out = [np.zeros((h, w, g.shape[-1]), np.float32) for h, w in shapes]
+    for l, (h, w) in enumerate(shapes):
+        for ty in range(-(-h // K2_TILE)):
+            for tx in range(-(-w // K2_TILE)):
+                acc = out[l][ty * K2_TILE:(ty + 1) * K2_TILE,
+                             tx * K2_TILE:(tx + 1) * K2_TILE]
+                for r in range(len(lvl)):
+                    if not _k2_hits(masks[r], l, lvl[r], ty, tx, shapes):
+                        continue
+                    rows = [_k2_entries(axes[0], r, p, ty * K2_TILE)
+                            for p in range(7)]
+                    cols = [_k2_entries(axes[1], r, p, tx * K2_TILE)
+                            for p in range(7)]
+                    for py in range(7):
+                        for px in range(7):
+                            gq = g[r, py, px] * np.float32(0.25)
+                            for y, wy in rows[py]:
+                                wg = wy * gq
+                                for x, wx in cols[px]:
+                                    acc[y, x] += wg * wx
+    return out
+
+
+def _k2_rois(canvas):
+    """The adversarial RoIs of chip_smoke.py at `canvas` (slivers across
+    the level, out-of-canvas, corner-straddling, degenerate, sub-pixel)
+    and a few ordinary ones."""
+    H, W = canvas
+    rng = np.random.RandomState(H + W)
+    ordinary = []
+    for _ in range(6):
+        x, y = rng.uniform(-20, W - 20), rng.uniform(-20, H - 20)
+        ordinary.append([x, y, x + rng.uniform(4, W / 2),
+                         y + rng.uniform(4, H / 2)])
+    return np.array([
+        [0, 0, 0, 0], [10, 100 % H, W - 10, 100 % H + 2],
+        [W / 2, 0, W / 2 + 1.5, H], [-300, -200, W + 300, H + 200],
+        [W + 20, H + 20, W + 80, H + 90], [-90, -60, -10, -5],
+        [W - 8, H - 8, W + 8, H + 8], [0.5, 0.5, 1.0, 1.0],
+        [0, H / 2, 1200, H / 2 + 2],  # a 1200x2 sliver on P2
+    ] + ordinary, np.float32)
+
+
+# the full canvas, the tests' canvas, and one whose P2 has 100 tiles along x
+# (two tiles per mask bit)
+K2_CANVASES = [FULL_CANVAS, CANVAS, (64, 3200)]
+
+
+def _k2_shapes(canvas):
+    return [(-(-canvas[0] // s), -(-canvas[1] // s)) for s in STRIDES]
+
+
+def _k2_autograd(shapes, rois, g):
+    leaves = [torch.zeros(1, h, w, g.shape[-1], requires_grad=True)
+              for h, w in shapes]
+    out = T.roi_align_plain(leaves, torch.from_numpy(rois)[None])
+    return [d[0].numpy() for d in torch.autograd.grad(
+        out, leaves, torch.from_numpy(g)[None])]
+
+
+@pytest.mark.parametrize("canvas", K2_CANVASES)
+def test_k2_tile_masks_cover_every_touched_cell(canvas):
+    """Each RoI alone: every cell where autograd of the plain version is
+    non-zero lies at the RoI's level, in a tile both its masks hit."""
+    shapes = _k2_shapes(canvas)
+    rois = _k2_rois(canvas)
+    lvl, axes = _k2_geometry(rois, shapes)
+    masks = _k2_masks(lvl, axes, shapes)
+    g = (np.abs(np.random.RandomState(5).randn(len(rois), 7, 7, 1))
+         + 0.5).astype(np.float32)  # positive: no sum cancels to 0
+    touched = 0
+    for r in range(len(rois)):
+        grads = _k2_autograd(shapes, rois[r:r + 1], g[r:r + 1])
+        for l, d in enumerate(grads):
+            cells = np.argwhere(np.abs(d).sum(-1) > 0)
+            assert l == lvl[r] or not len(cells), (r, l)
+            for y, x in cells:
+                assert _k2_hits(masks[r], l, lvl[r], y // K2_TILE,
+                                x // K2_TILE, shapes), (r, l, y, x)
+            touched += len(cells)
+    assert touched > 0
+    if canvas == (64, 3200):
+        assert _k2_per(shapes[0][1]) == 2
+
+
+@pytest.mark.parametrize("canvas", K2_CANVASES)
+def test_k2_tiled_gather_model_matches_autograd(canvas):
+    shapes = _k2_shapes(canvas)
+    rois = _k2_rois(canvas)
+    lvl, axes = _k2_geometry(rois, shapes)
+    masks = _k2_masks(lvl, axes, shapes)
+    g = np.random.RandomState(6).randn(len(rois), 7, 7, 3).astype(np.float32)
+    got = _k2_gather(lvl, axes, masks, g, shapes)
+    for l, ref in enumerate(_k2_autograd(shapes, rois, g)):
+        assert got[l].shape == ref.shape
+        np.testing.assert_allclose(got[l], ref, rtol=1e-5,
+                                   atol=1e-6 * max(1.0, np.abs(ref).max()),
+                                   err_msg=f"P{l + 2}")
