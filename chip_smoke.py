@@ -11,11 +11,15 @@ Phases, each of which fails the run (non-zero exit) on any fault:
    all at once);
 3. hold each kernel against its plain PyTorch version on the card at the
    main paths' shapes (K1 RoIAlign forward, K2 its backward, K3 the RPN IoU
-   matcher, K4 the FCOS centre-sampling matcher, K5 the RPN proposal
-   decode + NMS at the training and predict shapes, K6 first-k greedy NMS
-   at both predicts' shapes), timing both with CUDA events; then run a
-   small float32 model of each family on the card and on the CPU with the
-   same weights, batch and random draws and require the same losses;
+   matcher with and without low-quality matches, on images with and
+   without a gt that meets no anchor, K4 the FCOS centre-sampling matcher,
+   K5 the RPN proposal decode + NMS at the training and predict shapes, K6
+   first-k greedy NMS at both predicts' shapes), timing both with CUDA
+   events (K1 and K3 also as issued, without the device sleep), and require
+   K1 and K3 to refuse inputs that are not 16-byte aligned before any
+   launch; then run a small float32 model of each family on the card and
+   on the CPU with the same weights, batch and random draws and require
+   the same losses;
 4. train: the full-width DG Faster R-CNN (ResNet-50 (3,4,6,3), 608x1216,
    default FRCNNConfig, 3 domains, bf16, batch 8, random weights from a
    seed) runs two DG cycles of fused pairs (0,1), (0,2), (0,3), (0,4) under
@@ -29,9 +33,9 @@ Phases, each of which fails the run (non-zero exit) on any fault:
    predict must launch exactly the kernels its family runs (K2 not in mode
    2's frozen half, K4 not in FCOS mode 1, K5 in each FRCNN half and
    predict, K6 once per predict), and every kernel must have run on some
-   path; K2-K6 are held against their plain versions once more on the last
+   path; K1-K6 are held against their plain versions once more on the last
    inputs the path gave them (K2 also against itself: two calls, the same
-   bits);
+   bits), and K3 is timed on them (the training path's 2-8 gt per image);
 8. the CLI, the product's entry point, at full width for each family: a
    synthetic dataset of PNGs and CSVs (source domains a, b, c with 16 train
    and 8 val images each, target i with 8 val images, 600x1200) in a
@@ -68,9 +72,12 @@ HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12  # float32 outside the tensor cores
 
 # The previous designs' times, from this script at the same shapes on an
-# NVIDIA H100 80GB HBM3 at 700 W: K2 as an f32 atomic scatter with a zero
-# and a cast pass, K5 with a scan that decided one row per step
-PREVIOUS_MS = {"K2": 1.853, "K5 train": 1.047, "K5 predict": 0.458}
+# NVIDIA H100 80GB HBM3 at 700 W: K1 as one block per RoI with a thread per
+# channel, K2 as an f32 atomic scatter with a zero and a cast pass, K3 with
+# gt on the thread axis of its first pass, K5 with a scan that decided one
+# row per step
+PREVIOUS_MS = {"K1 train": 0.566, "K1 predict": 0.982, "K2": 1.853,
+               "K3": 0.707, "K5 train": 1.047, "K5 predict": 0.458}
 
 CANVAS = (608, 1216)
 B = 8
@@ -84,12 +91,44 @@ def fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
 
 
-def cuda_time_ms(fn, iters: int = 10, warmup: int = 2) -> float:
+def misaligned(t: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of `t` one element past a 16-byte boundary."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    return buf[1:].view(t.shape).copy_(t)
+
+
+def expect_refused(label: str, fn, launches) -> None:
+    """`fn()` must raise ValueError before the count `launches()` moves."""
+    before = launches()
+    try:
+        fn()
+    except ValueError as e:
+        print(f"{label}: refused ({e})")
+    else:
+        fail(f"{label}: the wrapper took it")
+    if launches() != before:
+        fail(f"{label}: launched before refusing")
+
+
+def cuda_time_ms(fn, iters: int = 10, warmup: int = 2,
+                 queued: bool = True) -> float:
+    """Device ms per call of `fn`, CUDA events around `iters` calls. With
+    `queued`, the calls are queued behind a device sleep that outlasts the
+    host's time to issue them, so a kernel shorter than its wrapper's
+    Python is timed on the device (a call that synchronises inside still
+    waits for the host). Without it they run as the host issues them, and a
+    call whose host cost exceeds its kernel's time is timed at the host's
+    rate."""
+    torch.cuda.synchronize()
+    t = time.perf_counter()
     for _ in range(warmup):
         fn()
+    host_s = (time.perf_counter() - t) / warmup
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    if queued:  # cycles at up to 2 GHz: twice the issue time, at most 50 ms
+        torch.cuda._sleep(int(2e9 * min(0.05, 2 * iters * host_s)))
     start.record()
     for _ in range(iters):
         fn()
@@ -230,8 +269,18 @@ def check_roi_align(dev, report):
     k2_plain = cuda_time_ms(lambda: torch.autograd.grad(
         out16, leaves16, g, retain_graph=True), iters=3)
     k1_pred = cuda_time_ms(lambda: K.roi_align_fwd_cuda(feats16, rois[N_TEST]))
-    print(f"K1 {k1_ms:.3f} ms (plain {k1_plain:.3f}) at B={B} N={N_TRAIN} "
-          f"bf16; {k1_pred:.3f} ms at N={N_TEST}")
+    k1_issued = [cuda_time_ms(lambda n=n: K.roi_align_fwd_cuda(
+        feats16, rois[n]), queued=False) for n in (N_TRAIN, N_TEST)]
+    print(f"K1 {k1_ms:.3f} ms (plain {k1_plain:.3f}; previous design "
+          f"{PREVIOUS_MS['K1 train']:.3f}) at B={B} N={N_TRAIN} bf16; "
+          f"{k1_pred:.3f} ms (previous design {PREVIOUS_MS['K1 predict']:.3f})"
+          f" at N={N_TEST}; timed as issued, without the sleep: "
+          f"{k1_issued[0]:.3f} / {k1_issued[1]:.3f} ms")
+    fwd_count = lambda: K.fwd_launches  # noqa: E731
+    expect_refused("K1 with a misaligned level", lambda: K.roi_align_fwd_cuda(
+        [misaligned(feats16[0])] + feats16[1:], r), fwd_count)
+    expect_refused("K1 with misaligned rois", lambda: K.roi_align_fwd_cuda(
+        feats16, misaligned(r)), fwd_count)
     print(f"K2 {k2_ms:.3f} ms (plain autograd {k2_plain:.3f}; previous "
           f"design {PREVIOUS_MS['K2']:.3f}) at B={B} N={N_TRAIN} bf16")
 
@@ -249,10 +298,11 @@ def check_roi_align(dev, report):
     del out16, leaves16
 
 
-def check_iou_match(dev, anchors, report):
-    from dgod_tpu_torch.ops import cuda_matchers as K
-    from dgod_tpu_torch.ops.matchers import match_anchors_plain
-
+def k3_check_inputs(anchors: torch.Tensor):
+    """K3's check: gt [B,G,4] and valid [B,G] on the anchors' device, with
+    0, G, 1, 3, 7, 20, 60 and 100 valid gt per image (319 in all), gt equal
+    to anchors, a duplicate gt, junk in one image's padding and, in image
+    4, a valid gt beyond every anchor (its best IoU is 0)."""
     rng = np.random.RandomState(1)
     R = anchors.shape[0]
     anc = anchors.cpu().numpy()
@@ -271,28 +321,69 @@ def check_iou_match(dev, anchors, report):
             gt[b, 1] = anc[rng.randint(R)]
             gt[b, 2] = gt[b, 1]
     gt[3, 3:] = rng.uniform(0, 100, (G - 3, 4))  # padding with junk values
-    gt_t = torch.from_numpy(gt).to(dev)
-    valid_t = torch.from_numpy(valid).to(dev)
-    ref = match_anchors_plain(gt_t, valid_t, anchors, 0.7, 0.3, True)
-    got = K.iou_match_cuda(gt_t, valid_t, anchors, 0.7, 0.3, True)
-    torch.cuda.synchronize()
-    n_diff = int((ref != got).sum())
-    max_diff = int((ref.long() - got.long()).abs().max())
-    print(f"K3 iou_match: {n_diff} codes differ of {B * R}; "
-          f"fg={int((got >= 0).sum())} between={int((got == -2).sum())}")
-    if n_diff:
-        fail("K3 codes differ from the plain version")
-    if not bool((got[0] == -1).all()):
-        fail("K3: an image with no valid GT must be all BELOW_LOW")
+    far = anc[:, 2:].max(0) + 50
+    gt[4, 6] = [far[0], far[1], far[0] + 100, far[1] + 60]
+    return (torch.from_numpy(gt).to(anchors.device),
+            torch.from_numpy(valid).to(anchors.device))
+
+
+def check_iou_match(dev, anchors, report):
+    from dgod_tpu_torch.ops import cuda_matchers as K
+    from dgod_tpu_torch.ops.matchers import match_anchors_plain
+
+    R = anchors.shape[0]
+    gt_t, valid_t = k3_check_inputs(anchors)
+    valid = valid_t.cpu().numpy()
+    max_diff = 0
+    for allow in (True, False):
+        ref = match_anchors_plain(gt_t, valid_t, anchors, 0.7, 0.3, allow)
+        got = K.iou_match_cuda(gt_t, valid_t, anchors, 0.7, 0.3, allow)
+        torch.cuda.synchronize()
+        n_diff = int((ref != got).sum())
+        max_diff = max(max_diff, int((ref.long() - got.long()).abs().max()))
+        print(f"K3 iou_match allow_low_quality_matches={allow}: {n_diff} "
+              f"codes differ of {B * R}; fg={int((got >= 0).sum())} "
+              f"between={int((got == -2).sum())}; image 4 (a gt beyond "
+              f"every anchor) fg {int((got[4] >= 0).sum())}")
+        if n_diff:
+            fail(f"K3 codes differ from the plain version (allow={allow})")
+        if not bool((got[0] == -1).all()):
+            fail("K3: an image with no valid GT must be all BELOW_LOW")
+        if allow and not bool((got[4] >= 0).all()):
+            fail("K3: a valid gt of best 0 must rescue every anchor")
     ms = cuda_time_ms(lambda: K.iou_match_cuda(gt_t, valid_t, anchors, 0.7,
                                                0.3, True))
+    issued = cuda_time_ms(lambda: K.iou_match_cuda(
+        gt_t, valid_t, anchors, 0.7, 0.3, True), queued=False)
     plain = cuda_time_ms(lambda: match_anchors_plain(
         gt_t, valid_t, anchors, 0.7, 0.3, True), iters=3)
-    print(f"K3 {ms:.3f} ms (plain {plain:.3f}) at B={B} G={G} R={R}")
-    n_pairs = R * int(valid.sum())
+    # the ops these inputs need: the intersection test (two min, two max,
+    # two subtractions, two compares) for every valid (gt, anchor) pair,
+    # and the rest of the IoU and the max (12 more, one division) for each
+    # pair that intersects
+    n_pairs = n_hits = 0
+    for b in range(B):
+        g = gt_t[b][valid_t[b]][:, None]
+        iw = (torch.minimum(g[..., 2], anchors[:, 2])
+              - torch.maximum(g[..., 0], anchors[:, 0]))
+        ih = (torch.minimum(g[..., 3], anchors[:, 3])
+              - torch.maximum(g[..., 1], anchors[:, 1]))
+        n_hits += int(((iw > 0) & (ih > 0)).sum())
+        n_pairs += g.shape[0] * R
+        del iw, ih
+    print(f"K3 {ms:.3f} ms (plain {plain:.3f}; previous design "
+          f"{PREVIOUS_MS['K3']:.3f}) at B={B} G={G} R={R}, "
+          f"{int(valid.sum())} valid gt; timed as issued, without the sleep: "
+          f"{issued:.3f} ms; {n_hits} of {n_pairs} valid pairs intersect")
+    expect_refused("K3 with a misaligned gt view", lambda: K.iou_match_cuda(
+        misaligned(gt_t), valid_t, anchors, 0.7, 0.3, True),
+        lambda: K.launches)
+    expect_refused("K3 with misaligned anchors", lambda: K.iou_match_cuda(
+        gt_t, valid_t, misaligned(anchors), 0.7, 0.3, True),
+        lambda: K.launches)
     report["K3"] = dict(ms=ms, plain_ms=plain, max_abs_err=max_diff,
                         bytes=B * G * 17 + R * 16 + B * R * 4,
-                        ops=2 * n_pairs * 20)
+                        ops=8 * n_pairs + 12 * n_hits)
 
 
 def fcos_match_gt(rng: np.random.RandomState, anchors: np.ndarray, counts):
@@ -787,16 +878,16 @@ def expected_launches(family: str, k=None):
 
 class LastCalls:
     """While the main path runs, keep the arguments of the last call of
-    K2 and of each exact-code kernel wrapper (K3-K6), so that afterwards
-    each kernel can be held against its plain version on the path's own
-    inputs. The wrappers are called as before: each still counts its
-    launch."""
+    each kernel wrapper (K1-K6), so that afterwards each kernel can be held
+    against its plain version on the path's own inputs. The wrappers are
+    called as before: each still counts its launch."""
 
     def __init__(self):
         from dgod_tpu_torch.ops import (cuda_matchers, cuda_nms,
                                         cuda_proposals, cuda_roi_align)
 
-        self.targets = {"K2": (cuda_roi_align, "roi_align_bwd_cuda"),
+        self.targets = {"K1": (cuda_roi_align, "roi_align_fwd_cuda"),
+                        "K2": (cuda_roi_align, "roi_align_bwd_cuda"),
                         "K3": (cuda_matchers, "iou_match_cuda"),
                         "K4": (cuda_matchers, "fcos_match_cuda"),
                         "K5": (cuda_proposals, "decode_nms_cuda"),
@@ -822,10 +913,24 @@ class LastCalls:
         from dgod_tpu_torch.ops.matchers import fcos_match, match_anchors_plain
         from dgod_tpu_torch.ops.nms import nms_topk_plain
         from dgod_tpu_torch.ops.proposals import decode_nms_plain
+        from dgod_tpu_torch.ops.roi_align import roi_align_plain
 
         plain = {"K3": match_anchors_plain, "K4": fcos_match,
                  "K6": nms_topk_plain}
         for kid, (a, k) in sorted(self.args.items()):
+            if kid == "K1":
+                got = self.originals[kid](*a, **k)
+                ref = roi_align_plain(*a, **k)
+                err = float((got - ref).abs().max())
+                scale = max(1.0, float(ref.abs().max()))
+                print(f"{family} K1 on the main path's last inputs "
+                      f"{tuple(got.shape)}: max_abs_err {err:.3e} (ref max "
+                      f"{scale:.3f})")
+                if not torch.isfinite(got).all() or err > 1e-5 * scale:
+                    fail(f"{family}: K1 disagrees with its plain version on "
+                         f"the main path's inputs")
+                del got, ref
+                continue
             if kid == "K2":
                 hold_k2(f"{family} on the main path's last inputs", *a, **k)
                 continue
@@ -852,6 +957,15 @@ class LastCalls:
             if n_diff:
                 fail(f"{family}: {kid} disagrees with its plain version on "
                      f"the main path's inputs")
+            if kid == "K3":
+                ms = cuda_time_ms(lambda: self.originals[kid](*a, **k))
+                issued = cuda_time_ms(lambda: self.originals[kid](*a, **k),
+                                      queued=False)
+                n_gt = a[1].sum(1).tolist()
+                print(f"{family} K3 on the main path's last inputs: {ms:.3f} "
+                      f"ms, as issued without the sleep {issued:.3f} ms "
+                      f"(previous design {PREVIOUS_MS['K3']:.3f} at 319 "
+                      f"gt) at valid gt per image {n_gt}")
 
 
 def run_main_path(dev, family: str):

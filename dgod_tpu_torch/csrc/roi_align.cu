@@ -13,14 +13,32 @@
 // f32 xyxy in image pixels, pooled [B,N,7,7,C] f32, level grads [B,H_l,W_l,C]
 // in the feature dtype, the four levels back to back in one buffer.
 //
-// Both are bound by bytes on the H100. The forward writes B*N*49*C f32 (205
-// MB at B=8, N=512, C=256) and reads each RoI's window of cells: one block
-// per RoI, threads over channels, so a warp's loads and stores of one NHWC
-// cell are 32 neighbouring channels (coalesced). Every block computes the
-// RoI's level and its 14 sample coordinates per axis (lo/hi cell and
-// weight, the out-of-range mask folded into the weights) exactly as the
-// plain version's geometry, with explicitly rounded intrinsics so no FMA
-// contraction moves a sample across a cell boundary.
+// Both are bound by bytes on the H100. Each RoI's level and its 14 sample
+// coordinates per axis (lo/hi cell and weight, the out-of-range mask folded
+// into the weights) are computed exactly as the plain version's geometry,
+// with explicitly rounded intrinsics so no FMA contraction moves a sample
+// across a cell boundary.
+//
+// The forward writes B*N*49*C f32 (205 MB at B=8, N=512, C=256) and reads
+// each RoI's window of cells. A warp covers a whole NHWC cell with 16-byte
+// loads (8 bf16 or 4 f32 channels per lane: 512 bytes of a 256-channel
+// bf16 cell in one load instruction) and pools one bin row of a RoI: for
+// each of its 7 bins it issues the bin's 16 corner loads (2x2 samples x 4
+// corners) before their multiply-adds, and writes the bin's f32 channels
+// with 16-byte streaming stores (the output is 4x the 50 MB L2). Every
+// corner is loaded: its cell is clamped into the level, and a corner of
+// weight 0 (a sample out of range, a clamped edge) adds 0, as in the plain
+// version; a predicated load would cost a zero-fill per corner. A block
+// of 8 warps takes 2 consecutive RoIs: warps 0-6 pool the current RoI's 7
+// bin rows while warp 7 computes the next RoI's geometry into the other
+// half of a double buffer, so one barrier per RoI follows the pooling and
+// no warp waits for a geometry in front of its work. Each bin is summed in
+// one fixed order: samples (sy, sx) row-major, per sample the corners
+// (y lo, x lo), (y lo, x hi), (y hi, x lo), (y hi, x hi), each added to an
+// f32 sum that starts at 0 as one fused multiply-add of its weight wy*wx
+// (rounded) and the cell's value; the sum is then scaled by 1/4. (The
+// kernel folds the 1/4 into wy: scaling by a power of two commutes with
+// every rounding here, so the bits are the same.)
 //
 // The backward must read the pooled gradient (205 MB f32) and write the
 // level grads once (251 MB in bf16 at B=8). It is output-stationary, in
@@ -67,7 +85,10 @@ constexpr int P = 7;        // output bins per axis
 constexpr int S = 2;        // sampling ratio
 constexpr int PS = P * S;   // sample points per axis
 constexpr int LEVELS = 4;   // P2..P5
-constexpr int MAX_THREADS = 256;
+constexpr int FWD_WARPS = P + 1;  // K1: a warp per bin row, a geometry warp
+constexpr int FWD_THREADS = 32 * FWD_WARPS;
+constexpr int FWD_ROIS = 2;       // K1: consecutive RoIs per block
+constexpr int CORNERS = 4 * S * S;  // K1: a bin's corner loads
 constexpr int TH = 8;       // K2 tile rows (cells)
 constexpr int TW = 8;       // K2 tile columns
 constexpr int CS = 256;     // K2 channels per block
@@ -101,25 +122,20 @@ struct TileMask {    // K2: the tiles of its level a RoI adds into
   int lvl;
 };
 
-__device__ __forceinline__ float to_float(float v) { return v; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
-// Fills g (shared) for RoI `roi`; all threads call it, then sync.
-__device__ void roi_geometry(const Levels& L, const float* __restrict__ rois,
-                             int roi, Geometry& g) {
-  const float rx1 = rois[roi * 4 + 0];
-  const float ry1 = rois[roi * 4 + 1];
-  const float rx2 = rois[roi * 4 + 2];
-  const float ry2 = rois[roi * 4 + 3];
+// Fills g (shared) for the RoI `box`: thread t < 2 * PS computes sample
+// t % PS of axis t / PS, thread 0 stores the level. No sync.
+__device__ __forceinline__ void sample_geometry(const Levels& L, float4 box,
+                                                int t, Geometry& g) {
+  const float rx1 = box.x;
+  const float ry1 = box.y;
+  const float rx2 = box.z;
+  const float ry2 = box.w;
   const float area =
       fmaxf(__fmul_rn(__fsub_rn(rx2, rx1), __fsub_rn(ry2, ry1)), 0.0f);
   const float k = floorf(__fadd_rn(
       4.0f, log2f(__fadd_rn(__fdiv_rn(sqrtf(area), 224.0f), 1e-6f))));
   const int lvl = static_cast<int>(fminf(fmaxf(k - 2.0f, 0.0f), 3.0f));
   const float scale = L.scale[lvl];
-  const int t = threadIdx.x;
   if (t == 0) g.lvl = lvl;
   if (t < 2 * PS) {
     const int axis = t / PS;  // 0: y, 1: x
@@ -143,46 +159,139 @@ __device__ void roi_geometry(const Levels& L, const float* __restrict__ rois,
     g.wlo[axis][i] = ok ? __fsub_rn(1.0f, frac) : 0.0f;
     g.whi[axis][i] = ok ? frac : 0.0f;
   }
+}
+
+// Fills g (shared) for RoI `roi`; all threads call it, then sync.
+__device__ void roi_geometry(const Levels& L, const float* __restrict__ rois,
+                             int roi, Geometry& g) {
+  sample_geometry(L,
+                  make_float4(rois[roi * 4 + 0], rois[roi * 4 + 1],
+                              rois[roi * 4 + 2], rois[roi * 4 + 3]),
+                  threadIdx.x, g);
   __syncthreads();
 }
 
+// K1: 16 bytes of features (VEC channels) as floats
+__device__ __forceinline__ void widen(const uint4& v, float* x, float) {
+  x[0] = __uint_as_float(v.x);
+  x[1] = __uint_as_float(v.y);
+  x[2] = __uint_as_float(v.z);
+  x[3] = __uint_as_float(v.w);
+}
+__device__ __forceinline__ void widen(const uint4& v, float* x,
+                                      __nv_bfloat16) {
+  const unsigned w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {  // the lower address is the low half
+    x[2 * i] = __uint_as_float(w[i] << 16);
+    x[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+  }
+}
+
+// K1: one warp pools bin row py of a RoI at its level's features f (image
+// base, W cells per row) into o (the RoI's [7, 7, C] f32 output). Lane l
+// takes the 16-byte channel vectors l, l + 32, ... of every cell.
 template <typename T>
-__global__ void fwd_kernel(Levels L, const float* __restrict__ rois,
-                           float* __restrict__ out, int N, int C) {
-  __shared__ Geometry g;
-  const int roi = blockIdx.x;
-  const int b = roi / N;
-  roi_geometry(L, rois, roi, g);
-  const int lvl = g.lvl;
-  const int H = L.h[lvl];
-  const int W = L.w[lvl];
-  const T* f = static_cast<const T*>(L.feat[lvl]) +
-               static_cast<size_t>(b) * H * W * C;
-  float* o = out + static_cast<size_t>(roi) * P * P * C;
-  for (int c = threadIdx.x; c < C; c += blockDim.x) {
-    for (int py = 0; py < P; ++py) {
-      for (int px = 0; px < P; ++px) {
-        float acc = 0.0f;
-        for (int sy = 0; sy < S; ++sy) {
-          const int iy = py * S + sy;
-          const float wy0 = g.wlo[0][iy], wy1 = g.whi[0][iy];
-          if (wy0 == 0.0f && wy1 == 0.0f) continue;
-          const size_t r0 = static_cast<size_t>(g.lo[0][iy]) * W;
-          const size_t r1 = static_cast<size_t>(g.hi[0][iy]) * W;
-          for (int sx = 0; sx < S; ++sx) {
-            const int ix = px * S + sx;
-            const float wx0 = g.wlo[1][ix], wx1 = g.whi[1][ix];
-            if (wx0 == 0.0f && wx1 == 0.0f) continue;
-            const int x0 = g.lo[1][ix], x1 = g.hi[1][ix];
-            acc += wy0 * wx0 * to_float(f[(r0 + x0) * C + c]) +
-                   wy0 * wx1 * to_float(f[(r0 + x1) * C + c]) +
-                   wy1 * wx0 * to_float(f[(r1 + x0) * C + c]) +
-                   wy1 * wx1 * to_float(f[(r1 + x1) * C + c]);
-          }
-        }
-        o[(py * P + px) * C + c] = acc * (1.0f / (S * S));
+__device__ __forceinline__ void pool_row(const Geometry& g,
+                                         const T* __restrict__ f, int W,
+                                         float* __restrict__ o, int C, int py,
+                                         int lane) {
+  constexpr int VEC = 16 / sizeof(T);
+  // the row's corners: [sample sy][lo, hi] -> index 2 * sy + a
+  const T* rows[2 * S];
+  float wy[2 * S];
+#pragma unroll
+  for (int s = 0; s < S; ++s) {
+    const int iy = py * S + s;
+    rows[2 * s] = f + static_cast<size_t>(g.lo[0][iy]) * W * C;
+    rows[2 * s + 1] = f + static_cast<size_t>(g.hi[0][iy]) * W * C;
+    wy[2 * s] = g.wlo[0][iy] * (1.0f / (S * S));  // the bin mean's 1/4
+    wy[2 * s + 1] = g.whi[0][iy] * (1.0f / (S * S));
+  }
+  const int n_vec = C / VEC;
+  for (int px = 0; px < P; ++px) {
+    int cols[2 * S];
+    float wx[2 * S];
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      const int ix = px * S + s;
+      cols[2 * s] = g.lo[1][ix] * C;
+      cols[2 * s + 1] = g.hi[1][ix] * C;
+      wx[2 * s] = g.wlo[1][ix];
+      wx[2 * s + 1] = g.whi[1][ix];
+    }
+    // corner k = ((sy * S + sx) * 2 + a) * 2 + b: row 2 * sy + a, column
+    // 2 * sx + b, the bin's fixed summation order
+    float w[CORNERS];
+    int ry[CORNERS], cx[CORNERS];
+#pragma unroll
+    for (int k = 0; k < CORNERS; ++k) {
+      const int sy = k / 8, sx = (k / 4) % 2, a = (k / 2) % 2, b = k % 2;
+      ry[k] = 2 * sy + a;
+      cx[k] = 2 * sx + b;
+      w[k] = __fmul_rn(wy[ry[k]], wx[cx[k]]);
+    }
+    float* dst = o + (py * P + px) * C;
+    for (int v = lane; v < n_vec; v += 32) {
+      uint4 raw[CORNERS];
+#pragma unroll
+      for (int k = 0; k < CORNERS; ++k) {
+        raw[k] = __ldg(reinterpret_cast<const uint4*>(rows[ry[k]] +
+                                                      cols[cx[k]] + v * VEC));
+      }
+      float acc[VEC];
+#pragma unroll
+      for (int c = 0; c < VEC; ++c) acc[c] = 0.0f;
+#pragma unroll
+      for (int k = 0; k < CORNERS; ++k) {
+        float x[VEC];
+        widen(raw[k], x, T());
+#pragma unroll
+        for (int c = 0; c < VEC; ++c) acc[c] = fmaf(w[k], x[c], acc[c]);
+      }
+#pragma unroll
+      for (int c = 0; c < VEC; c += 4) {
+        __stcs(reinterpret_cast<float4*>(dst + v * VEC + c),
+               make_float4(acc[c], acc[c + 1], acc[c + 2], acc[c + 3]));
       }
     }
+  }
+}
+
+// K1: grid ceil(B*N / FWD_ROIS), FWD_THREADS threads. rois 16-byte
+// aligned; C a multiple of 16 / sizeof(T); every level 16-byte aligned.
+template <typename T>
+__global__ void __launch_bounds__(FWD_THREADS)
+fwd_kernel(Levels L, const float4* __restrict__ rois, float* __restrict__ out,
+           int n_rois, int N, int C) {
+  __shared__ Geometry geo[2];  // the current RoI's and the next one's
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int first = blockIdx.x * FWD_ROIS;
+  const int count = min(FWD_ROIS, n_rois - first);
+  float4 next = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  if (warp == P) {
+    sample_geometry(L, rois[first], lane, geo[0]);
+    if (count > 1) next = rois[first + 1];
+  }
+  __syncthreads();
+  for (int k = 0; k < count; ++k) {
+    if (warp == P) {
+      // the next RoI's geometry while warps 0..6 pool this one
+      if (k + 1 < count) {
+        sample_geometry(L, next, lane, geo[(k + 1) & 1]);
+        if (k + 2 < count) next = rois[first + k + 2];
+      }
+    } else {
+      const Geometry& g = geo[k & 1];
+      const int roi = first + k;
+      const int lvl = g.lvl;
+      const int H = L.h[lvl], W = L.w[lvl];
+      const T* f = static_cast<const T*>(L.feat[lvl]) +
+                   static_cast<size_t>(roi / N) * H * W * C;
+      pool_row<T>(g, f, W, out + static_cast<size_t>(roi) * P * P * C, C,
+                  warp, lane);
+    }
+    __syncthreads();
   }
 }
 
@@ -528,13 +637,13 @@ Levels make_levels(const void* const* feat, void* grad, size_t elem, int B,
   return L;
 }
 
-int threads_for(int C) { return C < MAX_THREADS ? ((C + 31) / 32) * 32 : MAX_THREADS; }
-
 size_t align16(size_t n) { return (n + 15) / 16 * 16; }
 
 }  // namespace
 
 // feats: 4 level pointers; dims: h0,w0,h1,w1,h2,w2,h3,w3; scales: 4 floats.
+// The levels and rois are 16-byte aligned and C * (2 with is_bf16, else 4)
+// is a multiple of 16 (the wrapper checks).
 extern "C" int roi_align_fwd(const void* f0, const void* f1, const void* f2,
                              const void* f3, int h0, int w0, int h1, int w1,
                              int h2, int w2, int h3, int w3, float s0,
@@ -547,15 +656,13 @@ extern "C" int roi_align_fwd(const void* f0, const void* f1, const void* f2,
   const float sc[LEVELS] = {s0, s1, s2, s3};
   Levels L = make_levels(feat, nullptr, 0, B, C, h, w, sc);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int blocks = B * N;
-  if (blocks == 0) return 0;
-  if (is_bf16) {
-    fwd_kernel<__nv_bfloat16><<<blocks, threads_for(C), 0, s>>>(
-        L, static_cast<const float*>(rois), static_cast<float*>(out), N, C);
-  } else {
-    fwd_kernel<float><<<blocks, threads_for(C), 0, s>>>(
-        L, static_cast<const float*>(rois), static_cast<float*>(out), N, C);
-  }
+  const int n_rois = B * N;
+  if (n_rois == 0) return 0;
+  const int blocks = (n_rois + FWD_ROIS - 1) / FWD_ROIS;
+  const auto kernel = is_bf16 ? fwd_kernel<__nv_bfloat16> : fwd_kernel<float>;
+  kernel<<<blocks, FWD_THREADS, 0, s>>>(L, static_cast<const float4*>(rois),
+                                        static_cast<float*>(out), n_rois, N,
+                                        C);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -3,9 +3,12 @@
 - K3 (`csrc/iou_match.cu`, `iou_match_cuda`): the batched RPN IoU matcher.
   Replaces dgod_tpu/ops/pallas_matchers.py::_iou_match_kernel (via
   iou_match_tpu). Bound on the H100 by operations: ~20 f32 ops and one IEEE
-  division per (image, gt, anchor) IoU, computed twice (pass 1 finds each
-  gt's best IoU, pass 2 matches each anchor), never materialising the
-  [B,G,R] planes. Plain version: `matchers.match_anchors_plain`.
+  division per (image, valid gt, anchor) IoU, never materialising the
+  [B,G,R] planes. Anchors on the thread axis over each image's valid gt,
+  compacted in shared memory; pass 1 stores each anchor's max IoU and
+  argmax and each gt's best, pass 2 codes each anchor and tests the
+  low-quality rescue only against the gt whose best can tie. Plain version:
+  `matchers.match_anchors_plain`.
 - K4 (`csrc/fcos_match.cu`, `fcos_match_cuda`): the FCOS centre-sampling
   matcher. Replaces dgod_tpu/ops/pallas_matchers.py::_fcos_match_kernel (via
   fcos_match_tpu). Bound by operations (~25 f32 ops per (image, valid gt,
@@ -36,7 +39,7 @@ def _kernel():
     global _fn
     if _fn is None:
         fn = _build.load("iou_match").iou_match
-        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
+        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 3
                        + [ctypes.c_float, ctypes.c_float, ctypes.c_int,
                           ctypes.c_void_p])
         fn.restype = ctypes.c_int
@@ -70,16 +73,20 @@ def iou_match_cuda(gt_boxes: torch.Tensor, gt_valid: torch.Tensor,
         raise ValueError("iou_match_cuda: gt_valid must be [B,G]")
     if anchors.dim() != 2 or anchors.shape[-1] != 4:
         raise ValueError("iou_match_cuda: anchors must be [R,4]")
+    if gt_boxes.data_ptr() % 16 or anchors.data_ptr() % 16:
+        raise ValueError("iou_match_cuda: boxes must be 16-byte aligned")
     R = anchors.shape[0]
 
+    # scratch: each gt's best IoU, each anchor's max IoU and argmax
     best = torch.empty((B, G), dtype=torch.int32, device=gt_boxes.device)
+    top = torch.empty((B, R, 2), dtype=torch.int32, device=gt_boxes.device)
     out = torch.empty((B, R), dtype=torch.int32, device=gt_boxes.device)
     fn = _kernel()
     stream = torch.cuda.current_stream(gt_boxes.device).cuda_stream
     rc = fn(gt_boxes.data_ptr(), gt_valid.data_ptr(), anchors.data_ptr(),
-            best.data_ptr(), out.data_ptr(), B, G, R, float(high_threshold),
-            float(low_threshold), int(bool(allow_low_quality_matches)),
-            stream)
+            best.data_ptr(), top.data_ptr(), out.data_ptr(), B, G, R,
+            float(high_threshold), float(low_threshold),
+            int(bool(allow_low_quality_matches)), stream)
     _build.check_launch(rc, "iou_match")
     launches += 1
     return out

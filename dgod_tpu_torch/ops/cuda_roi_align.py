@@ -5,14 +5,16 @@ K1 replaces dgod_tpu/ops/pallas_roi_align.py::_fwd_kernel/_fwd_kernel_deep
 (via _roi_align_fwd); K2 replaces _bwd_kernel/_bwd_kernel_deep (via
 _roi_align_bwd). Both are bound by bytes on the H100: K1 writes the f32
 pooled features and reads each RoI's window of cells, K2 reads the pooled
-gradient and writes the level grads in the feature dtype. K1 runs one block
-per RoI with threads over channels, so every load and store of an NHWC cell
-is coalesced. K2 is output-stationary where the TPU kernel serialised
-aliasing RoI windows: one pass stores each RoI's sample geometry and the
-masks of the 8x8-cell tiles it touches, a second gives each (image, level,
-tile) one block that sums its RoIs' contributions over 256 channels in
-shared memory, in ascending RoI order, and writes the tile once in the
-feature dtype. No f32 buffer, memset, cast pass or atomics; two calls on
+gradient and writes the level grads in the feature dtype. In K1 a warp
+pools one bin row of a RoI over all channels with 16-byte loads and
+streaming stores, a bin's corner loads issued together, while a geometry
+warp prepares the block's next RoI; so K1 takes levels and RoIs that are
+16-byte aligned, with C * itemsize a multiple of 16. K2 is
+output-stationary where the TPU kernel serialised aliasing RoI windows:
+one pass stores each RoI's sample geometry and the masks of the 8x8-cell
+tiles it touches, a second gives each (image, level, tile) one block that
+sums its RoIs' contributions over 256 channels in shared memory, in
+ascending RoI order, and writes the tile once in the feature dtype. No f32 buffer, memset, cast pass or atomics; two calls on
 the same inputs give the same bits. The RoI gradient is zero, as in the
 TPU kernel's VJP. The plain version is `roi_align.roi_align_plain`.
 """
@@ -93,6 +95,12 @@ def roi_align_fwd_cuda(feats, rois) -> torch.Tensor:
     _check(feats, rois)
     B, N = rois.shape[:2]
     C = feats[0].shape[-1]
+    if C * feats[0].element_size() % 16:
+        raise ValueError(f"roi_align_fwd_cuda: C * itemsize must be a "
+                         f"multiple of 16 bytes, got C={C}")
+    if any(t.data_ptr() % 16 for t in (rois, *feats)):
+        raise ValueError("roi_align_fwd_cuda: levels and rois must be "
+                         "16-byte aligned")
     out = torch.empty((B, N, 7, 7, C), dtype=torch.float32,
                       device=rois.device)
     fwd = _kernels()["fwd"]

@@ -1,0 +1,221 @@
+#!/usr/bin/env python3
+"""Split the time of K1 (RoIAlign forward, csrc/roi_align.cu) and K3 (the
+RPN IoU matcher, csrc/iou_match.cu) on the card.
+
+    python3 scripts/time_k1_k3_parts.py
+
+Builds edited copies of the two sources under dgod_tpu_torch/_build/parts/
+(one nvcc each, all at once) and times each with CUDA events, in turns,
+three rounds:
+
+K1, on chip_smoke.py's K1 inputs (B=8, N=512 and N=1000 adversarial RoIs,
+C=256, bf16 P2-P5 of 608x1216):
+- base: the source as it is;
+- no_loads: no feature loads (geometry, multiply-adds of zeros and the
+  stores remain);
+- skip_zero: a corner of weight 0 is not loaded (a predicated load that
+  fills zeros);
+- no_stores: the bins are pooled but not stored (a store guarded by a test
+  no sum passes keeps the work alive);
+- cached_stores: write-back stores in place of streaming ones;
+- rois_1, rois_4, rois_8: 1, 4 or 8 RoIs per block in place of 2.
+
+K3, on chip_smoke.py's K3 check (319 valid gt over 8 images) and on a
+training batch (2-8 gt per image, chip_smoke.synthetic_batch):
+- base;
+- pass1_only: the memset and pass 1 (pass 2 not launched);
+- pass2_only: pass 2 alone, on the scratch a base call left (the caching
+  allocator hands the wrapper the same blocks: its codes equal base's);
+- always_divide: pass 1 and 2 divide for pairs that do not intersect;
+- no_cull: pass 1 walks every valid gt for every warp (no chunk or warp
+  box test);
+- no_prune: pass 2 tests the rescue against every valid gt of positive
+  best (no bound by the block's largest max, no box test);
+- per_lane_1, per_lane_2: pass 1 with 1 or 2 anchors per lane in place of
+  4 (blocks of 256 or 512 anchors);
+- per_thread_1, per_thread_2: pass 2 with 1 or 2 anchors per thread in
+  place of 4 (blocks of 256 or 512 anchors);
+- layout_1: one anchor per lane and per thread in both passes;
+- fine_first: both passes dispatch the anchors in index order, the finest
+  level first, in place of the coarsest first.
+
+A copy that skips a store may show base's output where the caching
+allocator hands it the memory of base's last result.
+
+Prints the card's name and power limit, each copy's registers, whether it
+gives base's bits, and its times in ms. Needs a CUDA device.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+
+import chip_smoke as cs  # noqa: E402
+from dgod_tpu_torch.ops import _build  # noqa: E402
+from dgod_tpu_torch.ops import cuda_matchers, cuda_roi_align  # noqa: E402
+
+LOAD = "raw[k] = __ldg("
+STORE = "__stcs(reinterpret_cast<float4*>(dst + v * VEC + c),"
+VARIANTS = {
+    "roi_align": {
+        "base": [],
+        "no_loads": [(LOAD, "raw[k] = make_uint4(0u, 0u, 0u, 0u); (")],
+        "skip_zero": [(LOAD, "raw[k] = w[k] == 0.0f ? make_uint4(0u, 0u, 0u,"
+                             " 0u) : __ldg(")],
+        "no_stores": [(STORE, "if (acc[c] + acc[c + 1] + acc[c + 2] + "
+                              "acc[c + 3] == 1.2345e-30f) " + STORE)],
+        "cached_stores": [(STORE, STORE.replace("__stcs", "__stwb"))],
+        "rois_1": [("FWD_ROIS = 2;", "FWD_ROIS = 1;")],
+        "rois_4": [("FWD_ROIS = 2;", "FWD_ROIS = 4;")],
+        "rois_8": [("FWD_ROIS = 2;", "FWD_ROIS = 8;")],
+    },
+    "iou_match": {
+        "base": [],
+        "pass1_only": [("  match_kernel<<<", "  if (false) match_kernel<<<")],
+        "pass2_only": [("  if (G > 0) {", "  if (false) {"),
+                       ("  best_kernel<<<", "  if (false) best_kernel<<<")],
+        "always_divide": [
+            ("  if (!(iw > 0.0f && ih > 0.0f)) return 0.0f;\n", ""),
+            ("const float inter = __fmul_rn(iw, ih);",
+             "const float inter = iw > 0.0f && ih > 0.0f ? "
+             "__fmul_rn(iw, ih) : 0.0f;")],
+        "no_cull": [("slot.valid && meets(slot.box, chunk_box)", "slot.valid"),
+                    ("if (!meets(g, box)) continue;", "")],
+        "no_prune": [("slot.best <= block_max &&", ""),
+                     ("meets(slot.box, block_box)", "true")],
+        "per_lane_1": [("PER_LANE = 4;", "PER_LANE = 1;")],
+        "per_lane_2": [("PER_LANE = 4;", "PER_LANE = 2;")],
+        "per_thread_1": [("PER_THREAD = 4;", "PER_THREAD = 1;")],
+        "per_thread_2": [("PER_THREAD = 4;", "PER_THREAD = 2;")],
+        "layout_1": [("PER_LANE = 4;", "PER_LANE = 1;"),
+                     ("PER_THREAD = 4;", "PER_THREAD = 1;")],
+        "fine_first": [("chunk = chunks - 1 - blockIdx.x / B", "chunk = "
+                        "blockIdx.x / B"),
+                       ("(gridDim.x - 1 - blockIdx.x) * BLOCK2", "blockIdx.x"
+                        " * BLOCK2")],
+    },
+}
+
+
+def build(out_dir: Path):
+    out_dir.mkdir(parents=True, exist_ok=True)
+    nvcc = _build.nvcc_path()
+    procs = {}
+    for source, variants in VARIANTS.items():
+        src = (_build.CSRC / f"{source}.cu").read_text()
+        for name, edits in variants.items():
+            text = src
+            for old, new in edits:
+                if old not in text:
+                    raise SystemExit(f"{source} {name}: the source no longer "
+                                     f"has the text this variant edits")
+                text = text.replace(old, new)
+            stem = out_dir / f"{source}_{name}"
+            stem.with_suffix(".cu").write_text(text)
+            procs[source, name] = subprocess.Popen(
+                [nvcc, *_build.NVCC_FLAGS, "-o", str(stem.with_suffix(".so")),
+                 str(stem.with_suffix(".cu"))],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    for (source, name), proc in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode:
+            raise SystemExit(f"nvcc failed for {source} {name}:\n{log}")
+        regs = [line.split("info    :")[-1].strip() for line in
+                log.splitlines() if "registers" in line]
+        print(f"{source} {name}: {'; '.join(regs)}")
+
+
+def use(out_dir: Path, source: str, name=None):
+    """The wrappers load the copy's library from now on (the built source's
+    with no name)."""
+    if name is None:
+        _build._loaded.pop(source, None)
+    else:
+        _build._loaded[source] = ctypes.CDLL(
+            str(out_dir / f"{source}_{name}.so"))
+    cuda_roi_align._fns.clear()
+    cuda_matchers._fn = None
+
+
+def as_list(out):
+    return list(out) if isinstance(out, (list, tuple)) else [out]
+
+
+def rounds(out_dir, source, calls):
+    """Times of every variant of `source` on each named call, in turns over
+    three rounds; the first round also compares outputs with base's."""
+    use(out_dir, source, "base")
+    refs = {label: fn() for label, fn in calls.items()}
+    times = {(name, label): [] for name in VARIANTS[source] for label in calls}
+    for rnd in range(3):
+        for name in VARIANTS[source]:
+            for label, fn in calls.items():
+                if name == "pass2_only":  # its scratch: a base call's
+                    use(out_dir, source, "base")
+                    fn()
+                use(out_dir, source, name)
+                if rnd == 0:
+                    same = all(torch.equal(a, b) for a, b in
+                               zip(as_list(fn()), as_list(refs[label])))
+                    print(f"{source} {name} on {label}: the same output as "
+                          f"base: {same}")
+                times[name, label].append(cs.cuda_time_ms(fn, iters=20))
+    use(out_dir, source)
+    for (name, label), t in times.items():
+        print(f"{source} {name:14s} {label:10s} ms: "
+              + " ".join(f"{x:.4f}" for x in t))
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("time_k1_k3_parts: no CUDA device", file=sys.stderr)
+        return 1
+    out_dir = _build.BUILD_DIR / "parts"
+    build(out_dir)
+    print(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip())
+    dev = torch.device("cuda")
+
+    rng = np.random.RandomState(0)
+    feats = [torch.from_numpy(rng.randn(cs.B, h, w, cs.C).astype(np.float32))
+             .to(dev).to(torch.bfloat16) for h, w in cs.level_shapes()]
+    rois = {n: torch.from_numpy(cs.make_rois(rng, n)).to(dev)
+            for n in (cs.N_TRAIN, cs.N_TEST)}
+    rounds(out_dir, "roi_align", {
+        f"N={n}": (lambda r=r: cuda_roi_align.roi_align_fwd_cuda(feats, r))
+        for n, r in rois.items()})
+    del feats, rois
+
+    from dgod_tpu_torch.models.faster_rcnn import FRCNNDetector
+
+    anchors = FRCNNDetector(canvas=cs.CANVAS,
+                            backbone_block_counts=(1, 1, 1, 1)
+                            ).anchors.to(dev).contiguous()
+    check = cs.k3_check_inputs(anchors)
+    batch = cs.synthetic_batch(np.random.RandomState(5), cs.B, cs.CANVAS, 3)
+    train = (torch.from_numpy(batch["boxes"]).to(dev),
+             torch.from_numpy(batch["gt_valid"]).to(dev))
+    print(f"K3 inputs: valid gt per image, check "
+          f"{check[1].sum(1).tolist()}, training {train[1].sum(1).tolist()}")
+    rounds(out_dir, "iou_match", {
+        label: (lambda gt=gt, v=v: cuda_matchers.iou_match_cuda(
+            gt, v, anchors, 0.7, 0.3, True))
+        for label, (gt, v) in (("check", check), ("training", train))})
+    return 0
+
+
+if __name__ == "__main__":
+    os.chdir(ROOT)
+    sys.exit(main())

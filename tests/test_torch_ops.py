@@ -189,6 +189,150 @@ def test_match_anchors_batched_matches_jax_and_pallas(monkeypatch):
     assert (got >= 0).any() and (got == t_matchers.BETWEEN).any()
 
 
+# -- K3's pruned matcher (csrc/iou_match.cu), modelled on the CPU --------------
+
+def _k3_iou(g, a):
+    """The kernel's IoU of aligned boxes: a pair that does not intersect is
+    exactly 0 without the division."""
+    iw = torch.minimum(g[..., 2], a[..., 2]) - torch.maximum(g[..., 0], a[..., 0])
+    ih = torch.minimum(g[..., 3], a[..., 3]) - torch.maximum(g[..., 1], a[..., 1])
+    hit = (iw > 0) & (ih > 0)
+    out = torch.zeros_like(iw)
+    inter = iw[hit] * ih[hit]
+    ga = (g[..., 2] - g[..., 0]) * (g[..., 3] - g[..., 1])
+    aa = (a[..., 2] - a[..., 0]) * (a[..., 3] - a[..., 1])
+    uni = ga.expand_as(iw)[hit] + aa.expand_as(iw)[hit] - inter
+    out[hit] = torch.where(uni > 0, inter / uni, torch.zeros_like(inter))
+    return out
+
+
+K3_CHUNK, K3_WARP, K3_BLOCK = 1024, 128, 1024  # anchors per pass-1 block
+# and warp, per pass-2 block
+
+
+def _k3_box(a):
+    """The box around anchors a [n,4]."""
+    return torch.cat([a[:, :2].min(0).values, a[:, 2:].max(0).values])
+
+
+def _k3_meets(g, box):
+    """Which of the boxes g [n,4] intersect `box` [4], as the kernel tests."""
+    return ((torch.minimum(g[:, 2], box[2]) - torch.maximum(g[:, 0], box[0])
+             > 0) & (torch.minimum(g[:, 3], box[3])
+                     - torch.maximum(g[:, 1], box[1]) > 0))
+
+
+def _k3_model(gt, valid, anchors, high, low, allow):
+    """The kernel's steps, per image. Pass 1, per chunk of 1024 anchors:
+    the valid gt that meet the chunk's box, in index order; per warp of 128
+    anchors, those that meet its box: each anchor's max IoU (from 0) and
+    the first index that exceeds it (-1 until then: the first valid gt),
+    each gt's best (from 0). Pass 2: the 0.7/0.3 codes; the rescue, every
+    anchor where a valid gt has best 0, else per block of 1024 anchors
+    tested against the valid gt whose best is at most the block's largest
+    max and that meet its box. -> (codes [B,R], IoUs of pass 1, IoUs of
+    pass 2)."""
+    B, R = gt.shape[0], anchors.shape[0]
+    out = torch.full((B, R), t_matchers.BELOW_LOW, dtype=torch.int32)
+    n1 = n2 = 0
+    for b in range(B):
+        idx = torch.nonzero(valid[b]).flatten()
+        if not len(idx):
+            continue
+        g = gt[b, idx]
+        mv = torch.zeros(R)
+        arg = torch.full((R,), -1)
+        best = torch.zeros(len(idx))
+        for c0 in range(0, R, K3_CHUNK):
+            listed = torch.nonzero(_k3_meets(
+                g, _k3_box(anchors[c0:c0 + K3_CHUNK]))).flatten()
+            for w0 in range(c0, min(c0 + K3_CHUNK, R), K3_WARP):
+                a = anchors[w0:w0 + K3_WARP]
+                sl = slice(w0, w0 + len(a))
+                for j in listed[_k3_meets(g[listed], _k3_box(a))]:
+                    v = _k3_iou(g[j][None], a)
+                    n1 += len(a)
+                    up = v > mv[sl]  # strict: the first index wins
+                    mv[sl] = torch.where(up, v, mv[sl])
+                    arg[sl] = torch.where(up, idx[j], arg[sl])
+                    best[j] = torch.maximum(best[j], v.max())
+        match = torch.where(arg < 0, idx[0], arg).to(torch.int32)
+        code = torch.where(mv < low, t_matchers.BELOW_LOW,
+                           torch.where(mv < high, t_matchers.BETWEEN, match))
+        if allow:
+            rescued = torch.full((R,), bool((best == 0).any()))
+            for r0 in range(0, R, K3_BLOCK):
+                if rescued[0]:
+                    break
+                a, m = anchors[r0:r0 + K3_BLOCK], mv[r0:r0 + K3_BLOCK]
+                sl = slice(r0, r0 + len(a))
+                can = (best <= m.max()) & _k3_meets(g, _k3_box(a))
+                for j in torch.nonzero(can).flatten():
+                    v = _k3_iou(g[j][None], a)
+                    n2 += int((best[j] <= m).sum())  # a thread's tests
+                    rescued[sl] |= (best[j] <= m) & (v == best[j])
+            code = torch.where(rescued, match, code)
+        out[b] = code.to(torch.int32)
+    return out, n1, n2
+
+
+def _k3_batch(rng, anchors):
+    """G = 128 padded gt over 5 images: no valid gt; all 128 valid; gt equal
+    to anchors with duplicates; few valid with junk in the padding; one
+    valid gt wholly off the canvas (best 0) among ordinary ones."""
+    G = 128
+    gt = rng.uniform(-50, 300, (5, G, 4)).astype(np.float32)  # junk
+    valid = np.zeros((5, G), bool)
+    gt[1] = _boxes(rng, G, span=180, min_wh=2, max_wh=60)
+    valid[1] = True
+    gt[2, :12] = anchors[rng.randint(len(anchors), size=12)]
+    gt[2, 12:24] = gt[2, :12]
+    valid[2, :24] = True
+    gt[3, :5] = _boxes(rng, 5, span=180, min_wh=8, max_wh=60)
+    valid[3, :5] = True
+    gt[4, :6] = _boxes(rng, 6, span=180, min_wh=8, max_wh=60)
+    gt[4, 3] = [900, 900, 960, 950]  # overlaps no anchor
+    valid[4, :6] = True
+    return gt, valid
+
+
+@pytest.mark.parametrize("allow", [True, False])
+def test_k3_pruned_matcher_model_matches_plain_and_jax(allow, monkeypatch):
+    monkeypatch.setattr(j_pallas_matchers, "TILE", 256)
+    rng = np.random.RandomState(12)
+    canvas = (96, 192)  # the RPN's anchors, in the kernel's order
+    anchors = t_anchors.rpn_anchors(
+        t_anchors.fpn_feat_shapes(canvas, (4, 8, 16, 32, 64)), canvas)[0]
+    anchors = np.asarray(anchors, np.float32)
+    gt, valid = _k3_batch(rng, anchors)
+    args = (0.7, 0.3, allow)
+    t_in = [torch.from_numpy(x) for x in (gt, valid, anchors)]
+    got, n1, n2 = _k3_model(*t_in, *args)
+    plain = t_matchers.match_anchors_plain(*t_in, *args)
+    xla = np.asarray(j_matchers.match_anchors_batched(
+        *map(jnp.asarray, (gt, valid, anchors)), *args))
+    pallas = np.asarray(j_pallas_matchers.iou_match_tpu(
+        *map(jnp.asarray, (gt, valid, anchors)), *args, interpret=True))
+    np.testing.assert_array_equal(plain.numpy(), got.numpy())
+    np.testing.assert_array_equal(xla, got.numpy())
+    np.testing.assert_array_equal(pallas, got.numpy())
+    assert (got[0] == t_matchers.BELOW_LOW).all()
+    assert (got[1] >= 0).any() and (got[2] >= 0).any()
+    mv = _k3_iou(torch.from_numpy(gt[4, :6])[:, None],
+                 torch.from_numpy(anchors)[None]).max(0).values
+    assert (mv == 0).any()
+    if allow:
+        # the off-canvas gt (best 0) ties with every anchor: all of image
+        # 4's anchors keep their argmax, the first valid gt where none
+        # overlaps
+        assert (got[4] >= 0).all() and (got[4][mv == 0] == 0).all()
+    else:
+        assert (got[4][mv == 0] == t_matchers.BELOW_LOW).all()
+    # the culled passes compute a small part of the pairs' IoUs
+    pairs = int(valid.sum()) * len(anchors)
+    assert 0 < n1 < pairs / 2 and n2 < pairs / 5
+
+
 @pytest.mark.parametrize("case", ["many_pos", "few_pos", "pad", "ties"])
 def test_balanced_sample_matches_jax(case, monkeypatch):
     rng = np.random.RandomState(7)

@@ -341,3 +341,53 @@ def test_k2_tiled_gather_model_matches_autograd(canvas):
         np.testing.assert_allclose(got[l], ref, rtol=1e-5,
                                    atol=1e-6 * max(1.0, np.abs(ref).max()),
                                    err_msg=f"P{l + 2}")
+
+
+# -- K1's per-bin sum (csrc/roi_align.cu), modelled on the CPU -----------------
+#
+# A warp of the kernel pools one bin row; per bin it loads its 16 corners
+# and sums them in one fixed order: samples (sy, sx)
+# row-major, per sample the corners (y lo, x lo), (y lo, x hi), (y hi, x lo),
+# (y hi, x hi), each added to an f32 sum that starts at 0 as one fused
+# multiply-add of its rounded weight wy*wx; the sum is then scaled by 1/4.
+# The model follows that order on the plain version's sample geometry (the
+# fused multiply-add as an exact product and sum in float64, rounded once).
+
+def _k1_model(feats, rois):
+    """feats per level [B,H,W,C] float32 numpy, rois [B,N,4] -> pooled
+    [B,N,7,7,C] in the kernel's summation order."""
+    B, N = rois.shape[:2]
+    C = feats[0].shape[-1]
+    shapes = [f.shape[1:3] for f in feats]
+    out = np.zeros((B, N, 7, 7, C), np.float32)
+    for b in range(B):
+        lvl, (y_axis, x_axis) = _k2_geometry(rois[b], shapes)
+        for r in range(N):
+            f = feats[lvl[r]][b].astype(np.float64)
+            for py in range(7):
+                for px in range(7):
+                    acc = np.zeros(C, np.float32)
+                    for sy in range(2):
+                        for sx in range(2):
+                            iy, ix = 2 * py + sy, 2 * px + sx
+                            for row, wy in ((y_axis[0][r, iy], y_axis[2][r, iy]),
+                                            (y_axis[1][r, iy], y_axis[3][r, iy])):
+                                for col, wx in ((x_axis[0][r, ix], x_axis[2][r, ix]),
+                                                (x_axis[1][r, ix], x_axis[3][r, ix])):
+                                    w = np.float32(wy * wx)
+                                    acc = (np.float64(w) * f[row, col]
+                                           + acc).astype(np.float32)
+                    out[b, r, py, px] = acc * np.float32(0.25)
+    return out
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k1_bin_sum_order_model_matches_plain(dtype):
+    rng = np.random.RandomState(7)
+    feats = [torch.from_numpy(f).to(dtype) for f in _feats(rng, 2, 16)]
+    rois = _rois(rng, 2, 16)
+    ref = T.roi_align_plain(feats, torch.from_numpy(rois)).numpy()
+    got = _k1_model([f.float().numpy() for f in feats], rois)
+    scale = max(1.0, float(np.abs(ref).max()))
+    assert np.abs(got - ref).max() <= 1e-5 * scale
+    assert np.abs(ref).max() > 0
