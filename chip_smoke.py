@@ -14,10 +14,14 @@ Phases, each of which fails the run (non-zero exit) on any fault:
    matcher with and without low-quality matches, on images with and
    without a gt that meets no anchor, K4 the FCOS centre-sampling matcher,
    K5 the RPN proposal decode + NMS at the training and predict shapes, K6
-   first-k greedy NMS at both predicts' shapes), timing both with CUDA
-   events (K1 and K3 also as issued, without the device sleep), and require
-   K1 and K3 to refuse inputs that are not 16-byte aligned before any
-   launch; then run a small float32 model of each family on the card and
+   first-k greedy NMS at both predicts' shapes and on adversarial rows:
+   copies of 3 boxes (every rank passed for 3 picks), disjoint boxes (the
+   first 100 ranks picked), +0.0/-0.0 ties and nothing valid, and at the
+   most entries its shared memory holds), timing both with CUDA events
+   (K1, K3 and K4 also as issued, without the device sleep), and require
+   K1 and K3 to refuse inputs that are not 16-byte aligned, and K6 one
+   entry more than it holds, before any launch; then
+   run a small float32 model of each family on the card and
    on the CPU with the same weights, batch and random draws and require
    the same losses;
 4. train: the full-width DG Faster R-CNN (ResNet-50 (3,4,6,3), 608x1216,
@@ -31,11 +35,12 @@ Phases, each of which fails the run (non-zero exit) on any fault:
 7. the kernels' launch counts: each family's path is driven with every
    count set to 0 just before it and read just after. Every pair and every
    predict must launch exactly the kernels its family runs (K2 not in mode
-   2's frozen half, K4 not in FCOS mode 1, K5 in each FRCNN half and
-   predict, K6 once per predict), and every kernel must have run on some
-   path; K1-K6 are held against their plain versions once more on the last
-   inputs the path gave them (K2 also against itself: two calls, the same
-   bits), and K3 is timed on them (the training path's 2-8 gt per image);
+   2's frozen half, K4 once in each FCOS pair, shared by its halves, K5 in
+   each FRCNN half and predict, K6 once per predict), and every kernel must
+   have run on some path; K1-K6 are held against their plain versions once
+   more on the last inputs the path gave them (K2 also against itself: two
+   calls, the same bits), and K3, K4 and K6 are timed on them (the
+   training path's 2-8 gt per image; the predict's candidates);
 8. the CLI, the product's entry point, at full width for each family: a
    synthetic dataset of PNGs and CSVs (source domains a, b, c with 16 train
    and 8 val images each, target i with 8 val images, 600x1200) in a
@@ -71,13 +76,19 @@ import torch
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12  # float32 outside the tensor cores
 
-# The previous designs' times, from this script at the same shapes on an
-# NVIDIA H100 80GB HBM3 at 700 W: K1 as one block per RoI with a thread per
-# channel, K2 as an f32 atomic scatter with a zero and a cast pass, K3 with
-# gt on the thread axis of its first pass, K5 with a scan that decided one
-# row per step
+# The previous designs' times on an NVIDIA H100 80GB HBM3 at 700 W, at the
+# same shapes: K1 as one block per RoI with a thread per channel, K2 as an
+# f32 atomic scatter with a zero and a cast pass, K3 with gt on the thread
+# axis of its first pass, K5 with a scan that decided one row per step, K6
+# at K=9000 and 4450 as k block-wide argmax-and-suppress rounds (all from
+# this script); K4 walking every gt of its image for each anchor, and K6's
+# adversarial rows, from scripts/time_k6_parts.py --parent on the same
+# inputs
 PREVIOUS_MS = {"K1 train": 0.566, "K1 predict": 0.982, "K2": 1.853,
-               "K3": 0.707, "K5 train": 1.047, "K5 predict": 0.458}
+               "K3": 0.707, "K4": 0.0241, "K5 train": 1.047,
+               "K5 predict": 0.458, "K6 K=9000": 0.486, "K6 K=4450": 0.296,
+               "K6 three": 0.0201, "K6 disjoint": 0.4768, "K6 zeros": 0.4861,
+               "K6 empty": 0.0064}
 
 CANVAS = (608, 1216)
 B = 8
@@ -470,10 +481,25 @@ def check_fcos_match(dev, report):
                                                 counts))
     plain = cuda_time_ms(lambda: fcos_match(anchors, gt_t, valid_t, counts),
                          iters=3)
-    print(f"K4 {ms:.3f} ms (plain {plain:.3f}) at B={B} G={G} R={R}")
+    issued = cuda_time_ms(lambda: K.fcos_match_cuda(anchors, gt_t, valid_t,
+                                                    counts), queued=False)
+    print(f"K4 {ms:.4f} ms (plain {plain:.3f}; previous design "
+          f"{PREVIOUS_MS['K4']:.3f}) at B={B} G={G} R={R},"
+          f" valid gt per image {valid.sum(1).tolist()}; timed as issued, "
+          f"without the sleep: {issued:.4f} ms")
+    # the work these inputs need: every test for each (image, valid gt,
+    # anchor) pair whose anchor centre lies within the gt's centre window
+    ctr = 0.5 * (anchors[:, :2] + anchors[:, 2:])
+    rad = 1.5 * (anchors[:, 2] - anchors[:, 0])
+    gctr = 0.5 * (gt_t[..., :2] + gt_t[..., 2:])
+    near = ((ctr[None, None] - gctr[:, :, None]).abs().amax(-1)
+            < rad[None, None]) & valid_t[..., None]
+    n_near = int(near.sum())
+    print(f"K4 bound's work: {n_near} (image, valid gt, anchor) pairs in a "
+          f"centre window, of {R * int(valid.sum())} pairs")
     report["K4"] = dict(ms=ms, plain_ms=plain, max_abs_err=max_diff,
                         bytes=B * G * 17 + R * 16 + B * R * 4,
-                        ops=25 * R * int(valid.sum()))
+                        ops=25 * n_near)
 
 
 def nms_candidates(rng: np.random.RandomState, K: int):
@@ -498,10 +524,44 @@ def nms_candidates(rng: np.random.RandomState, K: int):
     return boxes, scores, labels, valid
 
 
+NMS_ROWS = ("three", "disjoint", "zeros", "empty")
+
+
+def nms_adversarial(rng: np.random.RandomState, kind: str, K: int = 9000):
+    """B rows of K candidates of one kind, as `nms_candidates` returns them:
+    "three": every entry a copy of one of 3 boxes, jittered by up to 2 px,
+    in one class, so 3 picks suppress the row and every rank must be
+    passed; "disjoint": K mutually disjoint boxes in one class, so the
+    first k ranks are the picks; "zeros": `nms_candidates`' boxes with
+    scores +0.0 and -0.0 at random, all tied (the lower index first);
+    "empty": nothing valid."""
+    labels = np.ones((B, K), np.int64)
+    valid = np.ones((B, K), bool)
+    scores = rng.rand(B, K).astype(np.float32)
+    if kind == "three":
+        base = np.float32([[100, 100, 300, 250], [400, 200, 700, 500],
+                           [800, 50, 1000, 400]])
+        boxes = base[rng.randint(0, 3, (B, K))] + rng.uniform(-2, 2, (B, K, 4))
+    elif kind == "disjoint":
+        i = np.arange(K)
+        x, y = (i % 100) * 12.0, (i // 100) * 7.0
+        boxes = np.tile(np.stack([x, y, x + 10, y + 5], 1), (B, 1, 1))
+    elif kind == "zeros":
+        boxes, _, labels, valid = nms_candidates(rng, K)
+        scores = np.where(rng.rand(B, K) < 0.5, -0.0, 0.0).astype(np.float32)
+    elif kind == "empty":
+        boxes, scores, labels, _ = nms_candidates(rng, K)
+        valid[:] = False
+    else:
+        raise ValueError(kind)
+    return boxes.astype(np.float32), scores, labels, valid
+
+
 def nms_live_work(boxes, valid, scores, idx, ok, thr):
-    """Live entries summed over the greedy rounds that picked something:
-    the work this run's data needs (an entry is live in round r until the
-    pick of some round <= r suppresses it)."""
+    """Live entries summed over the greedy rounds that picked something (an
+    entry is live in round r until the pick of some round <= r suppresses
+    it): the work of k argmax-and-suppress rounds, printed beside the bound
+    so that designs compare."""
     from dgod_tpu_torch.ops.boxes import elementwise_iou
 
     picks = torch.gather(boxes, 1, idx[..., None].expand(-1, -1, 4))
@@ -516,43 +576,116 @@ def nms_live_work(boxes, valid, scores, idx, ok, thr):
     return int((torch.minimum(first + 1, n_rounds) * live).sum())
 
 
+def nms_needed_work(boxes, valid, scores, idx, ok, thr):
+    """What this run's data needs of a greedy NMS cut at k picks, given its
+    picks: (the entries that must be ranked, the IoU tests they need). The
+    entries are every live one in an image with fewer than k picks, else
+    those ranked at or above its last pick; each is tested against the
+    picks ranked above it, in order, until one suppresses it (a pick
+    itself against all of them)."""
+    from dgod_tpu_torch.ops.boxes import elementwise_iou
+
+    B_, K_ = scores.shape
+    k = idx.shape[1]
+    live = valid & (scores > float("-inf"))
+    key = torch.where(live, scores + 0.0, float("-inf"))  # -0.0 ties +0.0
+    order = torch.sort(key, dim=1, descending=True, stable=True).indices
+    rank = torch.empty_like(order).scatter_(
+        1, order, torch.arange(K_, device=scores.device).expand(B_, -1))
+    picks = torch.gather(boxes, 1, idx[..., None].expand(-1, -1, 4))
+    iou = elementwise_iou(picks[:, :, None, :], boxes[:, None, :, :])
+    pick_rank = torch.gather(rank, 1, idx)
+    above = ok[..., None] & (pick_rank[..., None] < rank[:, None, :])
+    rounds = torch.arange(k, device=scores.device)[None, :, None]
+    first = torch.where(above & (iou > thr), rounds, k).min(1).values
+    tests = torch.where(first < k, first + 1, above.sum(1))
+    last = torch.where(ok, pick_rank, -1).max(1, keepdim=True).values
+    needed = live & ((ok.sum(1, keepdim=True) < k) | (rank <= last))
+    return int(needed.sum()), int((tests * needed).sum())
+
+
+def hold_k6(label, args, thr):
+    """K6 against its plain version on `args` (class-offset boxes, scores,
+    valid): idx and ok exactly equal. -> (idx, ok, greatest difference)."""
+    from dgod_tpu_torch.ops import cuda_nms as K
+    from dgod_tpu_torch.ops.nms import nms_topk_plain
+
+    ref_idx, ref_ok, _ = nms_topk_plain(*args, thr, 100)
+    idx, ok = K.nms_topk_cuda(*args, thr, 100)
+    torch.cuda.synchronize()
+    n_idx = int((idx != ref_idx).sum())
+    n_ok = int((ok != ref_ok).sum())
+    print(f"K6 nms_topk {label} iou={thr}: {n_idx} idx and {n_ok} ok differ "
+          f"of {idx.numel()}; picks per image {ok.sum(1).tolist()}")
+    if n_idx or n_ok:
+        fail(f"K6 disagrees with its plain version ({label})")
+    return idx, ok, max(int((idx - ref_idx).abs().max()), n_ok)
+
+
 def check_nms_topk(dev, report):
     from dgod_tpu_torch.ops import cuda_nms as K
     from dgod_tpu_torch.ops.nms import _class_offsets, nms_topk_plain
 
     rng = np.random.RandomState(12)
     max_diff = 0
-    times = {}
     # FRCNN predict: 1000 proposals x 9 classes at IoU 0.5; FCOS predict:
-    # 1000 candidates on each of P3..P6 and 450 on P7 at IoU 0.6
-    for K_, thr in ((9000, 0.5), (4450, 0.6)):
-        boxes, scores, labels, valid = (torch.from_numpy(a).to(dev) for a in
-                                        nms_candidates(rng, K_))
+    # 1000 candidates on each of P3..P6 and 450 on P7 at IoU 0.6; then the
+    # adversarial rows at the FRCNN shape
+    rows = [(f"K={K_}", K_, thr, nms_candidates(rng, K_))
+            for K_, thr in ((9000, 0.5), (4450, 0.6))]
+    rows += [(kind, 9000, 0.5, nms_adversarial(rng, kind))
+             for kind in NMS_ROWS]
+    for label, K_, thr, arrays in rows:
+        boxes, scores, labels, valid = (torch.from_numpy(a).to(dev)
+                                        for a in arrays)
         off = _class_offsets(boxes, labels).contiguous()
-        ref_idx, ref_ok, _ = nms_topk_plain(off, scores, valid, thr, 100)
-        idx, ok = K.nms_topk_cuda(off, scores, valid, thr, 100)
-        torch.cuda.synchronize()
-        n_idx = int((idx != ref_idx).sum())
-        n_ok = int((ok != ref_ok).sum())
-        max_diff = max(max_diff, int((idx - ref_idx).abs().max()), n_ok)
-        print(f"K6 nms_topk K={K_} iou={thr}: {n_idx} idx and {n_ok} ok "
-              f"differ of {B * 100}; picks per image {ok.sum(1).tolist()}")
-        if n_idx or n_ok:
-            fail(f"K6 disagrees with its plain version (K={K_})")
-        if bool(ok[2].any()) or int(ok[1].sum()) > 30 or not bool(ok[0].all()):
+        idx, ok, diff = hold_k6(label, (off, scores, valid), thr)
+        max_diff = max(max_diff, diff)
+        picks = ok.sum(1).tolist()
+        want = {"three": [3] * B, "disjoint": [100] * B, "empty": [0] * B}
+        if label in want and picks != want[label]:
+            fail(f"K6: picks {picks} on the {label} rows")
+        if label.startswith("K=") and (bool(ok[2].any()) or picks[1] > 30
+                                       or not bool(ok[0].all())):
             fail("K6: wrong number of picks on the edge-case rows")
+        if label == "disjoint" and not torch.equal(
+                idx, torch.sort(scores, dim=1, descending=True, stable=True)[1]
+                [:, :100]):
+            fail("K6: the disjoint rows must pick their first 100 ranks")
         ms = cuda_time_ms(lambda: K.nms_topk_cuda(off, scores, valid, thr,
                                                   100))
         plain = cuda_time_ms(lambda: nms_topk_plain(off, scores, valid, thr,
                                                     100), iters=3)
-        times[K_] = (ms, plain)
-        print(f"K6 {ms:.3f} ms (plain {plain:.3f}) at B={B} K={K_} k=100")
-        if K_ == 9000:  # the bound at the larger (FRCNN) shape
-            work = nms_live_work(off, valid, scores, idx, ok, thr)
-            report["K6"] = dict(ms=ms, plain_ms=plain,
-                                bytes=B * K_ * 21 + B * 100 * 9,
-                                ops=20 * work)
+        print(f"K6 {ms:.4f} ms (plain {plain:.3f}; previous design "
+              f"{PREVIOUS_MS[f'K6 {label}']:.4f}) at B={B} K={K_} k=100, "
+              f"{label} rows")
+        # the bound: score and valid of every entry, the box of each entry
+        # that must be ranked, 20 ops an IoU test, and the picks written;
+        # beside it the k argmax rounds' count (20 ops a live entry a round)
+        n_needed, n_tests = nms_needed_work(off, valid, scores, idx, ok, thr)
+        bytes_ = B * K_ * 5 + 16 * n_needed + B * 100 * 9
+        bound = max(bytes_ / HBM_BYTES_PER_S, 20 * n_tests / F32_FLOPS) * 1e3
+        rounds = max(B * K_ * 21 / HBM_BYTES_PER_S, 20 * nms_live_work(
+            off, valid, scores, idx, ok, thr) / F32_FLOPS) * 1e3
+        print(f"K6 bound {bound:.6f} ms ({n_needed} entries ranked, {n_tests}"
+              f" IoU tests); the argmax rounds' count {rounds:.6f} ms, "
+              f"{label} rows")
+        if K_ == 9000 and label.startswith("K="):  # the kernels line's row
+            report["K6"] = dict(ms=ms, plain_ms=plain, bytes=bytes_,
+                                ops=20 * n_tests)
     report["K6"]["max_abs_err"] = max_diff
+    # the most entries per image its shared memory holds at k = 100: taken,
+    # and one more refused before any launch
+    K._kernel()
+    limit = K._max_entries(100)
+    boxes, scores, labels, valid = (torch.from_numpy(a[:1]).to(dev) for a in
+                                    nms_candidates(rng, limit + 1))
+    off = _class_offsets(boxes, labels).contiguous()
+    hold_k6(f"K={limit} (the limit)", (off[:, :limit].contiguous(),
+                                       scores[:, :limit].contiguous(),
+                                       valid[:, :limit].contiguous()), 0.5)
+    expect_refused(f"K6 at K={limit + 1}", lambda: K.nms_topk_cuda(
+        off, scores, valid, 0.5, 100), lambda: K.launches)
 
 
 TRAIN_LEVELS = (2000, 2000, 2000, 2000, 570)  # rpn top-k per level, training
@@ -871,8 +1004,8 @@ def expected_launches(family: str, k=None):
         # K2 runs in each half that backpropagates into the FPN: not in
         # mode 2, whose detector is frozen; K5 in each half's proposals
         want.update(K1=2, K2=1 if k == 2 else 2, K3=1, K5=2)
-    else:  # mode 0's loss and modes 2-4's gt_classes match; mode 1 does not
-        want.update(K4=1 if k == 1 else 2)
+    else:  # one match per pair, shared by mode 0's loss and modes 2-4's
+        want.update(K4=1)
     return want
 
 
@@ -957,15 +1090,22 @@ class LastCalls:
             if n_diff:
                 fail(f"{family}: {kid} disagrees with its plain version on "
                      f"the main path's inputs")
-            if kid == "K3":
+            if kid in ("K3", "K4", "K6"):
                 ms = cuda_time_ms(lambda: self.originals[kid](*a, **k))
                 issued = cuda_time_ms(lambda: self.originals[kid](*a, **k),
                                       queued=False)
-                n_gt = a[1].sum(1).tolist()
-                print(f"{family} K3 on the main path's last inputs: {ms:.3f} "
-                      f"ms, as issued without the sleep {issued:.3f} ms "
-                      f"(previous design {PREVIOUS_MS['K3']:.3f} at 319 "
-                      f"gt) at valid gt per image {n_gt}")
+                if kid == "K6":  # boxes, scores, valid
+                    what = "live entries per image " + str(
+                        (a[2] & (a[1] > float("-inf"))).sum(1).tolist())
+                    prev = f"{PREVIOUS_MS['K6 K=9000']:.3f} at K=9000"
+                else:  # K3: gt, valid, anchors; K4: anchors, gt, valid
+                    what = "valid gt per image " + str(
+                        a[1 if kid == "K3" else 2].sum(1).tolist())
+                    prev = (f"{PREVIOUS_MS['K3']:.3f} at 319 gt" if kid == "K3"
+                            else f"{PREVIOUS_MS['K4']:.3f} at the check")
+                print(f"{family} {kid} on the main path's last inputs: "
+                      f"{ms:.4f} ms, as issued without the sleep {issued:.4f}"
+                      f" ms (previous design {prev}) at {what}")
 
 
 def run_main_path(dev, family: str):

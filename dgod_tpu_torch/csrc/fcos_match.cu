@@ -14,17 +14,19 @@
 // (lower, upper); the smallest area wins (argmax of 1e8 - area, first index
 // among equal maxima), and a best below 1e-5 means no match.
 //
-// Bound on the H100: operations. The inputs and output are under a MB, but
-// every (image, valid gt, anchor) pair needs up to ~25 f32 compares and
-// subtractions: 8 x 128 x 15,402 pairs at train shapes, a few microseconds
-// of the card's f32 rate. At that size the launch itself dominates.
+// Bound on the H100 (chip_smoke.py counts it from the run's data): the
+// bytes of the anchors, the gt and the codes, or ~25 f32 compares and
+// subtractions for each (image, valid gt, anchor) pair whose anchor centre
+// lies within the gt's centre window (the pairs that need every test; an
+// index by position could skip the rest), whichever takes longer.
 //
-// One block per (anchor chunk, image), one thread per anchor. The image's
-// gt, their centres, validity and (1e8 - area) qualities are staged once in
-// shared memory; every thread of a warp then reads the same gt (broadcast).
-// Each thread keeps the running best quality and the first index attaining
-// it (strict >, jnp.argmax's order) and never materialises the [G,R] plane;
-// a pair stops at the first test it fails.
+// One block per (chunk of 256 anchors, image), one thread per anchor. The
+// block compacts its image's valid gt into shared memory in ascending
+// index (ballots and a scan), with their centres and (1e8 - area)
+// qualities; the first 256 load before the anchors, so the loads overlap.
+// Each thread then walks that list, keeping the running best quality and
+// the first index attaining it (strict >, jnp.argmax's order), and never
+// materialises the [G,R] plane; a pair stops at the first test it fails.
 //
 // Rounding: 1e8 - area has an ulp of 8 in f32, so the area must be rounded
 // to f32 before the subtraction, as the plain version and XLA round it. nvcc
@@ -40,7 +42,9 @@
 namespace {
 
 constexpr int THREADS = 256;
+constexpr int WARPS = THREADS / 32;
 constexpr int MAX_G = 1024;  // shared memory bound on the gt per image
+constexpr unsigned FULL = 0xffffffffu;
 
 __global__ void __launch_bounds__(THREADS)
 fcos_match_kernel(const float4* __restrict__ gt,
@@ -52,40 +56,68 @@ fcos_match_kernel(const float4* __restrict__ gt,
   __shared__ float sctr_x[MAX_G];
   __shared__ float sctr_y[MAX_G];
   __shared__ float squal[MAX_G];
-  __shared__ uint8_t svalid[MAX_G];
+  __shared__ int sidx[MAX_G];
+  __shared__ int swarp[WARPS];
   const int b = blockIdx.y;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int r = blockIdx.x * THREADS + tid;
   const long long gbase = static_cast<long long>(b) * G;
-  for (int g = threadIdx.x; g < G; g += blockDim.x) {
-    const float4 q = gt[gbase + g];
-    sgt[g] = q;
-    svalid[g] = valid[gbase + g];
-    sctr_x[g] = __fmul_rn(0.5f, __fadd_rn(q.x, q.z));
-    sctr_y[g] = __fmul_rn(0.5f, __fadd_rn(q.y, q.w));
-    // exact_area: the reference's (y1 - x1) * (y2 - y1), verbatim
-    const float w = exact_area ? __fsub_rn(q.y, q.x) : __fsub_rn(q.z, q.x);
-    const float area = __fmul_rn(w, __fsub_rn(q.w, q.y));
-    squal[g] = __fsub_rn(1e8f, area);
-  }
-  __syncthreads();
-  const int r = blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= R) return;
-  const float4 a = anchors[r];
+
+  // the first THREADS gt, loaded before the anchor so the loads overlap
+  const bool valid0 = tid < G && valid[gbase + tid];
+  const float4 gt0 =
+      valid0 ? gt[gbase + tid] : make_float4(0.f, 0.f, 0.f, 0.f);
+
+  // the anchor's planes
+  const float4 a = r < R ? anchors[r] : make_float4(0.f, 0.f, 0.f, 0.f);
   const float cx = __fmul_rn(0.5f, __fadd_rn(a.x, a.z));
   const float cy = __fmul_rn(0.5f, __fadd_rn(a.y, a.w));
   const float size = __fsub_rn(a.z, a.x);
   const float rad = __fmul_rn(radius, size);
   const float lower = r < n_first ? 0.0f : __fmul_rn(size, 4.0f);
   const float upper = r >= R - n_last ? CUDART_INF_F : __fmul_rn(size, 8.0f);
+
+  // the image's valid gt, compacted in ascending index
+  int n = 0;
+  for (int g0 = 0; g0 < G; g0 += THREADS) {
+    const int g = g0 + tid;
+    const bool keep = g0 == 0 ? valid0 : g < G && valid[gbase + g];
+    float4 q = gt0;
+    if (g0 > 0) q = keep ? gt[gbase + g] : make_float4(0.f, 0.f, 0.f, 0.f);
+    const unsigned ball = __ballot_sync(FULL, keep);
+    if (lane == 0) swarp[warp] = __popc(ball);
+    __syncthreads();
+    int before = 0, total = 0;
+    for (int w = 0; w < WARPS; ++w) {
+      before += w < warp ? swarp[w] : 0;
+      total += swarp[w];
+    }
+    if (keep) {
+      const int at = n + before + __popc(ball & ((1u << lane) - 1u));
+      sgt[at] = q;
+      sctr_x[at] = __fmul_rn(0.5f, __fadd_rn(q.x, q.z));
+      sctr_y[at] = __fmul_rn(0.5f, __fadd_rn(q.y, q.w));
+      // exact_area: the reference's (y1 - x1) * (y2 - y1), verbatim
+      const float w = exact_area ? __fsub_rn(q.y, q.x) : __fsub_rn(q.z, q.x);
+      squal[at] = __fsub_rn(1e8f, __fmul_rn(w, __fsub_rn(q.w, q.y)));
+      sidx[at] = g;
+    }
+    n += total;
+    __syncthreads();  // swarp is read before the next chunk writes it
+  }
+  if (r >= R) return;
+
   // quality is mask * (1e8 - area): an unmatched gt scores 0, which never
   // beats a running best that starts at 0
   float best = 0.0f;
   int arg = 0;
-  for (int g = 0; g < G; ++g) {
-    if (!svalid[g]) continue;
-    const float dx = fabsf(__fsub_rn(cx, sctr_x[g]));
-    const float dy = fabsf(__fsub_rn(cy, sctr_y[g]));
+  for (int j = 0; j < n; ++j) {
+    const float dx = fabsf(__fsub_rn(cx, sctr_x[j]));
+    const float dy = fabsf(__fsub_rn(cy, sctr_y[j]));
     if (!(fmaxf(dx, dy) < rad)) continue;
-    const float4 q = sgt[g];
+    const float4 q = sgt[j];
     const float d1 = __fsub_rn(cx, q.x);
     const float d2 = __fsub_rn(cy, q.y);
     const float d3 = __fsub_rn(q.z, cx);
@@ -93,10 +125,10 @@ fcos_match_kernel(const float4* __restrict__ gt,
     if (!(fminf(fminf(d1, d2), fminf(d3, d4)) > 0.0f)) continue;
     const float max_d = fmaxf(fmaxf(d1, d2), fmaxf(d3, d4));
     if (!(max_d > lower && max_d < upper)) continue;
-    const float quality = squal[g];
+    const float quality = squal[j];
     if (quality > best) {  // strict: the first index wins among equal maxima
       best = quality;
-      arg = g;
+      arg = sidx[j];
     }
   }
   out[static_cast<long long>(b) * R + r] = best < 1e-5f ? -1 : arg;

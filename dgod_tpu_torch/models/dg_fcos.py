@@ -25,9 +25,9 @@ from torch import nn
 
 from ..device import resolve_device
 from ..ops import losses as loss_ops
-from ..ops import matchers
 from . import dg_heads
-from .fcos import FCOS, FCOSLossConfig, fcos_loss, fcos_postprocess, one_hot
+from .fcos import (FCOS, FCOSLossConfig, fcos_loss, fcos_match_codes,
+                   fcos_postprocess, one_hot)
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
@@ -92,29 +92,38 @@ class DGFCOSModel(nn.Module):
     def forward(self, images_uint8: torch.Tensor):
         return self.detector(self.normalize(images_uint8))
 
-    def _gt_classes(self, batch) -> torch.Tensor:
-        """Dense one-hot matcher targets [B, R, C]."""
+    def pair_targets(self, batch) -> Dict[str, torch.Tensor]:
+        """What both halves of a fused pair step take from `batch` alone:
+        the matcher's raw codes (modes 0 and 2-4 match the same gt against
+        the same anchors, and the match reads no parameter), passed to
+        `loss_for_mode` as `matched`."""
         det = self.detector
-        cfg = self.loss_config
-        matched = matchers.fcos_match_batched(
-            det.anchors, batch["boxes"].float().contiguous(),
-            batch["gt_valid"].contiguous(), det.anchor_counts,
-            cfg.center_sampling_radius, cfg.exact_reference_area).long()
+        return {"matched": fcos_match_codes(det.anchors, det.anchor_counts,
+                                            batch["boxes"], batch["gt_valid"],
+                                            self.loss_config)}
+
+    def _gt_classes(self, batch, matched=None) -> torch.Tensor:
+        """Dense one-hot matcher targets [B, R, C]."""
+        if matched is None:
+            matched = self.pair_targets(batch)["matched"]
         labels = torch.gather(batch["labels"].long(), 1, matched.clamp(min=0))
         return (one_hot(labels, self.num_classes)
                 * (matched >= 0)[..., None].float())
 
     # -- per-mode losses ---------------------------------------------------
 
-    def loss_for_mode(self, batch, draws, mode: int, reg_weights):
+    def loss_for_mode(self, batch, draws, mode: int, reg_weights,
+                      matched=None):
         """-> (total loss, metrics dict of detached scalars). `draws` is
-        unused (see `make_draws`)."""
+        unused (see `make_draws`); `matched`, the raw matcher codes of
+        `pair_targets`, is computed here where it is not given."""
         if mode == 0:
             outputs, _ = self(batch["image"])
             det = self.detector
             losses, _ = fcos_loss(outputs, det.anchors, det.anchor_counts,
                                   batch["boxes"], batch["labels"],
-                                  batch["gt_valid"], self.loss_config)
+                                  batch["gt_valid"], self.loss_config,
+                                  matched)
             total = (losses["classification"] + losses["bbox_regression"]
                      + losses["bbox_ctrness"])
             return total, {f"det/{k}": v.detach() for k, v in losses.items()}
@@ -137,7 +146,7 @@ class DGFCOSModel(nn.Module):
                            "dg/ins_da": l_ins.detach(),
                            "dg/cst": l_cst.detach()}
 
-        gt_classes = self._gt_classes(batch)  # [B, R, C]
+        gt_classes = self._gt_classes(batch, matched)  # [B, R, C]
         dense_ce = loss_ops.softmax_cross_entropy_dense
 
         if mode == 2:

@@ -99,6 +99,11 @@ class DGFRCNNModel(nn.Module):
         rpn = (uniform(R), uniform(R)) if with_rpn else (None, None)
         return Draws(*rpn, uniform(n_prop + num_gt), uniform(n_prop + num_gt))
 
+    def pair_targets(self, batch) -> Dict[str, torch.Tensor]:
+        """Nothing that both halves of a fused pair step share: mode 0's
+        RPN match is its own (see DGFCOSModel.pair_targets)."""
+        return {}
+
     # -- forward -----------------------------------------------------------
 
     @staticmethod

@@ -153,22 +153,32 @@ def one_hot(labels: torch.Tensor, num_classes: int,
     return (labels[..., None] == classes).to(dtype)
 
 
+def fcos_match_codes(anchors: torch.Tensor, num_anchors_per_level: tuple,
+                     gt_boxes: torch.Tensor, gt_valid: torch.Tensor,
+                     config: FCOSLossConfig = FCOSLossConfig()) -> torch.Tensor:
+    """The matcher's raw codes [B, R] int64 (kernel K4 on the card)."""
+    return matchers.fcos_match_batched(
+        anchors, gt_boxes.float().contiguous(), gt_valid.contiguous(),
+        num_anchors_per_level, config.center_sampling_radius,
+        config.exact_reference_area).long()
+
+
 def fcos_loss(outputs: Dict[str, torch.Tensor], anchors: torch.Tensor,
               num_anchors_per_level: tuple, gt_boxes: torch.Tensor,
               gt_labels: torch.Tensor, gt_valid: torch.Tensor,
-              config: FCOSLossConfig = FCOSLossConfig()):
+              config: FCOSLossConfig = FCOSLossConfig(), matched=None):
     """Batched FCOS loss -> (loss dict, dense one-hot gt_classes [B,R,C]).
     Each loss is summed over the batch and divided by the batch's number of
-    foreground locations (at least 1)."""
+    foreground locations (at least 1). `matched`: the raw codes of
+    `fcos_match_codes` on these gt, where the caller has them."""
     cls_logits = outputs["cls_logits"]
     bbox_regression = outputs["bbox_regression"]
     bbox_ctrness = outputs["bbox_ctrness"]
     B, R, C = cls_logits.shape
 
-    matched = matchers.fcos_match_batched(
-        anchors, gt_boxes.float().contiguous(), gt_valid.contiguous(),
-        num_anchors_per_level, config.center_sampling_radius,
-        config.exact_reference_area).long()  # [B, R]
+    if matched is None:
+        matched = fcos_match_codes(anchors, num_anchors_per_level, gt_boxes,
+                                   gt_valid, config)  # [B, R]
     if config.single_gt_quirk:
         # reference: images with <= 1 labels take zero targets everywhere
         few = gt_valid.sum(1) <= 1

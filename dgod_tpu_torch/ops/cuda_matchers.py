@@ -11,10 +11,11 @@
   `matchers.match_anchors_plain`.
 - K4 (`csrc/fcos_match.cu`, `fcos_match_cuda`): the FCOS centre-sampling
   matcher. Replaces dgod_tpu/ops/pallas_matchers.py::_fcos_match_kernel (via
-  fcos_match_tpu). Bound by operations (~25 f32 ops per (image, valid gt,
-  anchor)), one thread per anchor over the image's gt in shared memory;
-  each thread derives its anchor's planes (centre, radius, level range) as
-  the plain version `matchers.fcos_match` does.
+  fcos_match_tpu). One thread per anchor; each block compacts its image's
+  valid gt in ascending index into shared memory, and its threads walk
+  that list. Each thread derives its anchor's planes (centre, radius, level
+  range) as the plain version `matchers.fcos_match` does. A fused FCOS
+  pair step launches it once (`DGFCOSModel.pair_targets`).
 
 See the sources for the designs.
 """

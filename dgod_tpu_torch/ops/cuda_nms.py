@@ -2,11 +2,16 @@
 first k picks, batched over images.
 
 Replaces dgod_tpu/ops/pallas_nms.py::_nms_kernel (via nms_topk_pallas). One
-block per image runs the k argmax-and-suppress rounds with the image's live
-scores (and boxes, where they fit) in shared memory. Bound on the H100 by
-the serial dependency of the rounds, not by bytes or operations; see the
-source for the design. The plain version is `nms.nms_topk_plain`; idx and ok
-must agree exactly.
+block per image walks its live entries in the greedy order (score
+descending, the lower index first), a tile at a time: a radix select and a
+rank count order each tile in the kernel, a 64x64 IoU bitmask and a serial
+scan decide it, and a pool filter drops what a few picks suppress, so the
+time follows the picks rather than k x K. The image's live keys sit in
+shared memory, 8 bytes per entry: K up to 20,974 entries at k = 100 on the
+H100 (`nms_topk_max_entries`; a larger K raises ValueError before the
+launch). See the source for the design and the argument that the order
+equals the argmax rounds. The plain version is `nms.nms_topk_plain`;
+idx and ok must agree exactly.
 """
 
 from __future__ import annotations
@@ -20,17 +25,32 @@ from . import _build
 launches = 0  # kernel launches since the last reset (see chip_smoke.py)
 
 _fn = None
+_max_entries = None
 
 
 def _kernel():
-    global _fn
+    global _fn, _max_entries
     if _fn is None:
-        fn = _build.load("nms_topk").nms_topk
+        lib = _build.load("nms_topk")
+        fn = lib.nms_topk
         fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [
             ctypes.c_float] + [ctypes.c_void_p] * 3
         fn.restype = ctypes.c_int
+        _max_entries = lib.nms_topk_max_entries
+        _max_entries.argtypes = [ctypes.c_int]
+        _max_entries.restype = ctypes.c_int
         _fn = fn
     return _fn
+
+
+def check_capacity(K: int, k: int, limit: int) -> None:
+    """Raise ValueError where K entries per image exceed `limit`, the most
+    the kernel's shared memory holds at this k (`nms_topk_max_entries`)."""
+    if K > limit:
+        raise ValueError(
+            f"nms_topk_cuda: {K} entries per image exceed the kernel's limit "
+            f"of {limit} at k={k} on this device (its shared memory holds "
+            f"8 bytes per live entry); split the candidates or lower K")
 
 
 def nms_topk_cuda(boxes: torch.Tensor, scores: torch.Tensor,
@@ -61,6 +81,7 @@ def nms_topk_cuda(boxes: torch.Tensor, scores: torch.Tensor,
     ok = torch.empty((B, k), dtype=torch.bool, device=boxes.device)
     fn = _kernel()
     with torch.cuda.device(boxes.device):
+        check_capacity(K, int(k), _max_entries(int(k)))
         stream = torch.cuda.current_stream().cuda_stream
         rc = fn(boxes.data_ptr(), scores.data_ptr(), valid.data_ptr(), B, K,
                 int(k), float(iou_threshold), idx.data_ptr(), ok.data_ptr(),

@@ -10,7 +10,8 @@ Per mode, only the groups in MODE_ACTIVE_GROUPS take part:
 `apply_updates` touches only the active ones. `ModeScheduler` reproduces
 the reference's mode/sub-mode machine: in 'dg' the steps over replayed
 batches run 0,1,0,2,0,3,0,4; the fused pair step runs mode 0 then mode k
-on the same batch.
+on the same batch, and computes once what both halves take from the batch
+alone (`model.pair_targets`: FCOS's matcher codes, one K4 launch per pair).
 """
 
 from __future__ import annotations
@@ -64,9 +65,10 @@ def stop_inactive_grads(model: torch.nn.Module, active: Dict[str, bool]):
 
 
 def _half(model, opt_state, batch, draws, lr, mode, active, reg_weights,
-          opt_config):
+          opt_config, targets=None):
     stop_inactive_grads(model, active)
-    total, metrics = model.loss_for_mode(batch, draws, mode, reg_weights)
+    total, metrics = model.loss_for_mode(batch, draws, mode, reg_weights,
+                                         **(targets or {}))
     params = dict(model.named_parameters())
     names = [n for n, a in active.items() if a]
     grads = torch.autograd.grad(total, [params[n] for n in names],
@@ -95,7 +97,10 @@ def make_train_step(model, mode: int, reg_weights: Sequence[float],
 def make_pair_step(model, mode_k: int, reg_weights: Sequence[float],
                    opt_config: OptConfig, base_lr: float):
     """Fused DG pair: the mode-0 update, then the mode-k update on the same
-    batch (the mode-k pass sees the mode-0-updated parameters).
+    batch (the mode-k pass sees the mode-0-updated parameters). What both
+    halves take from the batch alone is computed once, before them
+    (`model.pair_targets`); it reads no parameter, so either half gets what
+    it would compute itself.
 
     -> step(opt_state, batch, draws0, draws1, lr_scale=1.0) -> (opt_state,
     metrics) with the metrics of both halves."""
@@ -105,10 +110,13 @@ def make_pair_step(model, mode_k: int, reg_weights: Sequence[float],
 
     def step(opt_state, batch, draws0, draws1, lr_scale=1.0):
         lr = base_lr * lr_scale
+        targets = model.pair_targets(batch)
         opt_state, m0 = _half(model, opt_state, batch, draws0, lr, 0,
-                              active_by_mode[0], reg_weights, opt_config)
+                              active_by_mode[0], reg_weights, opt_config,
+                              targets)
         opt_state, mk = _half(model, opt_state, batch, draws1, lr, mode_k,
-                              active_by_mode[mode_k], reg_weights, opt_config)
+                              active_by_mode[mode_k], reg_weights, opt_config,
+                              targets)
         metrics = {f"m0/{k}": v for k, v in m0.items()}
         metrics.update({f"m{mode_k}/{k}": v for k, v in mk.items()})
         metrics["loss"] = mk["loss"]

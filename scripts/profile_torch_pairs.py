@@ -1,23 +1,27 @@
 #!/usr/bin/env python3
 """Where the time of one DG cycle goes on the card (dgod_tpu_torch).
 
-    python3 scripts/profile_torch_pairs.py [--out DIR] [--trace]
+    python3 scripts/profile_torch_pairs.py [--family FRCNN|FCOS] [--out DIR]
+                                           [--trace]
 
-Builds the port's kernels and drives chip_smoke.py's main path through its
-own `build_main_path` and `dg_cycle` (so the configuration is chip_smoke's:
-ResNet-50 (3,4,6,3), 608x1216, default FRCNNConfig, 3 domains, bf16, batch
-8, random weights from seed 0 with FrozenBatchNorm statistics taken from
-the batch): one DG cycle of fused pairs (0,1)..(0,4) and a predict to warm
-up, one timed on the host clock, and one under torch.profiler.
+Builds the port's kernels and drives chip_smoke.py's main path of one
+family through its own `build_main_path` and `dg_cycle` (so the
+configuration is chip_smoke's: ResNet-50 (3,4,6,3), 608x1216, 3 domains,
+bf16, batch 8, random weights from seed 0 with FrozenBatchNorm statistics
+taken from the batch; FRCNN: default FRCNNConfig, SGD; FCOS: P3..P7, 9
+classes, Adam): one DG cycle of fused pairs (0,1)..(0,4) and a predict to
+warm up, one timed on the host clock, and one under torch.profiler.
 
 Prints the host-clock time of each pair step and of the predict, the
 device's busy time (the sum of its kernels, memcpys and memsets in the
 profiled cycle) and its idle share against the timed cycle, the profiled
 cycle's device launches and host syncs (CUDA synchronize calls, and the
 device-to-host scalar reads that make most of them), the device time by
-kernel category and the 25 kernels with the most device time.
-Writes the full table (and with --trace a chrome trace) under --out.
-Needs a CUDA device.
+kernel category and the 25 kernels with the most device time, and the
+port's kernel launches in the timed cycle as the wrappers count them
+(chip_smoke.read_counts; for FCOS, K4's launches and device time per
+cycle). Writes the full table (and with --trace a chrome trace) under
+--out/<family>. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -75,6 +79,7 @@ def device_time_us(evt) -> float:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--family", choices=("FRCNN", "FCOS"), default="FRCNN")
     ap.add_argument("--out", default=str(ROOT / "chiprun_out" / "profile"))
     ap.add_argument("--trace", action="store_true",
                     help="also write the chrome trace (tens of MB)")
@@ -87,13 +92,14 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     _build.build()
-    path = cs.build_main_path(torch.device("cuda"))
-    with torch.no_grad():
-        feats, _ = path.model.detector.features(
-            path.model.normalize(path.batch["image"]))
-    print("P2..P5 are contiguous NHWC views (no copy before K1): "
-          f"{[bool(f.is_contiguous()) for f in feats[:4]]}")
-    del feats
+    path = cs.build_main_path(torch.device("cuda"), args.family)
+    if args.family == "FRCNN":
+        with torch.no_grad():
+            feats, _ = path.model.detector.features(
+                path.model.normalize(path.batch["image"]))
+        print("P2..P5 are contiguous NHWC views (no copy before K1): "
+              f"{[bool(f.is_contiguous()) for f in feats[:4]]}")
+        del feats
 
     def finite(k, metrics, _state, _ms):
         if not all(torch.isfinite(v).all() for v in metrics.values()):
@@ -107,13 +113,15 @@ def main() -> int:
         return times
 
     cycle()  # warm-up: cuDNN autotuning, allocator growth
+    cs.reset_counts()
     times = cycle()  # the host-clock times, without the profiler's cost
+    launches = cs.read_counts()
     wall_ms = sum(times.values())
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         prof_times = cycle()
 
-    out = Path(args.out)
+    out = Path(args.out) / args.family
     out.mkdir(parents=True, exist_ok=True)
     if args.trace:
         prof.export_chrome_trace(str(out / "dg_cycle_trace.json"))
@@ -143,6 +151,7 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip())
+    print(f"{args.family} DG cycle")
     print("host-clock ms: " + ", ".join(f"{k} {v:.1f}"
                                         for k, v in times.items()))
     print("host-clock ms under the profiler: " + ", ".join(
@@ -158,6 +167,13 @@ def main() -> int:
     print("device time by category (ms, share of busy):")
     for cat, ms in by_cat.most_common():
         print(f"  {ms:9.2f}  {ms / busy_ms:6.3f}  {cat}")
+    print(f"the port's kernel launches in the timed cycle (wrappers): "
+          f"{launches}")
+    if args.family == "FCOS":
+        k4 = [e for e in events if category(e.key).startswith("K4")]
+        print(f"K4 per FCOS DG cycle: {launches['K4']} launches, "
+              f"{sum(device_time_us(e) for e in k4) / 1e3:.4f} ms device "
+              f"time (profiled cycle)")
     print("the port's kernels (ms, launches, category, name):")
     for e in events:
         cat = category(e.key)

@@ -6,7 +6,7 @@ RPN IoU matcher, csrc/iou_match.cu) on the card.
 
 Builds edited copies of the two sources under dgod_tpu_torch/_build/parts/
 (one nvcc each, all at once) and times each with CUDA events, in turns,
-three rounds:
+three rounds (scripts/_parts.py):
 
 K1, on chip_smoke.py's K1 inputs (B=8, N=512 and N=1000 adversarial RoIs,
 C=256, bf16 P2-P5 of 608x1216):
@@ -48,21 +48,14 @@ gives base's bits, and its times in ms. Needs a CUDA device.
 
 from __future__ import annotations
 
-import ctypes
 import os
-import subprocess
 import sys
-from pathlib import Path
 
-ROOT = Path(__file__).resolve().parents[1]
-sys.path.insert(0, str(ROOT))
+import numpy as np
+import torch
 
-import numpy as np  # noqa: E402
-import torch  # noqa: E402
-
-import chip_smoke as cs  # noqa: E402
-from dgod_tpu_torch.ops import _build  # noqa: E402
-from dgod_tpu_torch.ops import cuda_matchers, cuda_roi_align  # noqa: E402
+from _parts import ROOT, build, card, cs, rounds
+from dgod_tpu_torch.ops import cuda_matchers, cuda_roi_align
 
 LOAD = "raw[k] = __ldg("
 STORE = "__stcs(reinterpret_cast<float4*>(dst + v * VEC + c),"
@@ -107,85 +100,12 @@ VARIANTS = {
 }
 
 
-def build(out_dir: Path):
-    out_dir.mkdir(parents=True, exist_ok=True)
-    nvcc = _build.nvcc_path()
-    procs = {}
-    for source, variants in VARIANTS.items():
-        src = (_build.CSRC / f"{source}.cu").read_text()
-        for name, edits in variants.items():
-            text = src
-            for old, new in edits:
-                if old not in text:
-                    raise SystemExit(f"{source} {name}: the source no longer "
-                                     f"has the text this variant edits")
-                text = text.replace(old, new)
-            stem = out_dir / f"{source}_{name}"
-            stem.with_suffix(".cu").write_text(text)
-            procs[source, name] = subprocess.Popen(
-                [nvcc, *_build.NVCC_FLAGS, "-o", str(stem.with_suffix(".so")),
-                 str(stem.with_suffix(".cu"))],
-                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    for (source, name), proc in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode:
-            raise SystemExit(f"nvcc failed for {source} {name}:\n{log}")
-        regs = [line.split("info    :")[-1].strip() for line in
-                log.splitlines() if "registers" in line]
-        print(f"{source} {name}: {'; '.join(regs)}")
-
-
-def use(out_dir: Path, source: str, name=None):
-    """The wrappers load the copy's library from now on (the built source's
-    with no name)."""
-    if name is None:
-        _build._loaded.pop(source, None)
-    else:
-        _build._loaded[source] = ctypes.CDLL(
-            str(out_dir / f"{source}_{name}.so"))
-    cuda_roi_align._fns.clear()
-    cuda_matchers._fn = None
-
-
-def as_list(out):
-    return list(out) if isinstance(out, (list, tuple)) else [out]
-
-
-def rounds(out_dir, source, calls):
-    """Times of every variant of `source` on each named call, in turns over
-    three rounds; the first round also compares outputs with base's."""
-    use(out_dir, source, "base")
-    refs = {label: fn() for label, fn in calls.items()}
-    times = {(name, label): [] for name in VARIANTS[source] for label in calls}
-    for rnd in range(3):
-        for name in VARIANTS[source]:
-            for label, fn in calls.items():
-                if name == "pass2_only":  # its scratch: a base call's
-                    use(out_dir, source, "base")
-                    fn()
-                use(out_dir, source, name)
-                if rnd == 0:
-                    same = all(torch.equal(a, b) for a, b in
-                               zip(as_list(fn()), as_list(refs[label])))
-                    print(f"{source} {name} on {label}: the same output as "
-                          f"base: {same}")
-                times[name, label].append(cs.cuda_time_ms(fn, iters=20))
-    use(out_dir, source)
-    for (name, label), t in times.items():
-        print(f"{source} {name:14s} {label:10s} ms: "
-              + " ".join(f"{x:.4f}" for x in t))
-
-
 def main() -> int:
     if not torch.cuda.is_available():
         print("time_k1_k3_parts: no CUDA device", file=sys.stderr)
         return 1
-    out_dir = _build.BUILD_DIR / "parts"
-    build(out_dir)
-    print(subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip())
+    names = build(VARIANTS)
+    card()
     dev = torch.device("cuda")
 
     rng = np.random.RandomState(0)
@@ -193,7 +113,7 @@ def main() -> int:
              .to(dev).to(torch.bfloat16) for h, w in cs.level_shapes()]
     rois = {n: torch.from_numpy(cs.make_rois(rng, n)).to(dev)
             for n in (cs.N_TRAIN, cs.N_TEST)}
-    rounds(out_dir, "roi_align", {
+    rounds("roi_align", names["roi_align"], {
         f"N={n}": (lambda r=r: cuda_roi_align.roi_align_fwd_cuda(feats, r))
         for n, r in rois.items()})
     del feats, rois
@@ -209,10 +129,11 @@ def main() -> int:
              torch.from_numpy(batch["gt_valid"]).to(dev))
     print(f"K3 inputs: valid gt per image, check "
           f"{check[1].sum(1).tolist()}, training {train[1].sum(1).tolist()}")
-    rounds(out_dir, "iou_match", {
+    rounds("iou_match", names["iou_match"], {
         label: (lambda gt=gt, v=v: cuda_matchers.iou_match_cuda(
             gt, v, anchors, 0.7, 0.3, True))
-        for label, (gt, v) in (("check", check), ("training", train))})
+        for label, (gt, v) in (("check", check), ("training", train))},
+        after_base=("pass2_only",))
     return 0
 
 

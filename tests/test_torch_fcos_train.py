@@ -12,13 +12,15 @@ the pair step is held to JAX's in two parts that compose to the whole:
 - the gradients: for each mode, the port's autograd and `jax.grad` of
   `loss_for_mode` (inactive groups stopped) agree norm-wise to 1e-2 per
   leaf, from the same weights and batch;
-- the step: the port's fused pair steps (0,1) and (0,4) under
+- the step: the port's fused pair steps (0,1), (0,2) and (0,4) under
   Adam(1e-4, wd 1e-4), given JAX's gradient of each half, equal JAX's pair
   step (mode 0's update, then mode k's at the updated weights; JAX's
   `apply_updates` with its own gradients): every parameter to rtol 1e-4,
   each leaf's update norm-wise to 1e-2, Adam's moments to rtol 1e-4, and the
   per-leaf step counts exactly, advanced only on the leaves each half
-  activates; the losses of both halves agree to rtol 1e-4;
+  activates; the losses of both halves agree to rtol 1e-4; and the pair
+  matches its gt once (`fcos_match_batched`, kernel K4 on the card), both
+  halves taking those codes;
 - each pair moves exactly the groups its two modes activate, and equals
   mode 0's train step followed by mode k's.
 """
@@ -34,6 +36,7 @@ from _torch_parity import (REG_WEIGHTS, build_fcos_pair, jax_name, tiny_batch,
                            to_torch)
 from dgod_tpu.train import optim as j_optim
 from dgod_tpu.train import steps as j_steps
+from dgod_tpu_torch.ops import matchers as t_matchers
 from dgod_tpu_torch.train import optim as t_optim
 from dgod_tpu_torch.train import steps as t_steps
 from dgod_tpu_torch.utils.weights import params_from_jax
@@ -116,7 +119,7 @@ def test_fcos_gradients_match_jax(pair, batch, jax_grad, mode):
             assert not g.numpy().any(), n
 
 
-@pytest.mark.parametrize("k", [1, 4])
+@pytest.mark.parametrize("k", [1, 2, 4])
 def test_adam_pair_step_matches_jax(pair, batch, jax_grad, k, monkeypatch):
     jm, jp, tm0 = pair
     opt_config, lr = j_steps.make_optimizer("FCOS")
@@ -145,9 +148,18 @@ def test_adam_pair_step_matches_jax(pair, batch, jax_grad, k, monkeypatch):
         g = next(halves)
         return tuple(g[name_of[id(t)]].clone() for t in inputs)
 
+    matches = []
+    fcos_match_batched = t_matchers.fcos_match_batched
+
+    def counted(*args, **kwargs):
+        matches.append(args)
+        return fcos_match_batched(*args, **kwargs)
+
+    monkeypatch.setattr(t_matchers, "fcos_match_batched", counted)
     monkeypatch.setattr(torch.autograd, "grad", jax_gradients)
     t_state, t_metrics = _port_pair_step(tm, batch, k)
     monkeypatch.undo()
+    assert len(matches) == 1  # one match per pair, whatever k
 
     for name, ref in zip(("loss0", "loss"), j_losses):
         np.testing.assert_allclose(float(t_metrics[name]), ref, rtol=1e-4,
