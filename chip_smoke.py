@@ -50,10 +50,29 @@ Phases, each of which fails the run (non-zero exit) on any fault:
    test sweep), counts from 0 around it; then the test mAP finite in
    [0, 1], the best checkpoint finite and moved from the init, the launches
    those of 6 pairs and 4 predicts, and a `--max_epochs 0` rerun giving
-   the same test mAP.
+   the same test mAP;
+9. the torchvision warm start of each family: a calibrated full-width
+   init written as a torchvision checkpoint (COCO's 91-class predictor or
+   cls_logits; for FCOS also a plain ImageNet resnet50), loaded by the CLI
+   (`--torch_weights X.pth --max_epochs 0`) into its own model: every
+   ported tensor equal to the written one bit for bit, the class-dependent
+   layers (and, from the resnet50, all but the body) the model's init, the
+   test mAP in [0, 1]; then one finite pair step (0,1), counts from 0
+   around them;
+10. each family learns on the card, non_dg, through the kernels, with the
+   JAX convergence script's recipe (random weights from model seed 0,
+   FrozenBatchNorm at identity), to train mAP@0.5 >= 0.6: FCOS at the CPU
+   learning test's size within 60 epochs, FRCNN (600-step LR warm-up) at
+   300x600 within 100 epochs (`learn_size` says why); counts from 0
+   around each.
+
+Each family's main path also reports its second DG cycle's images/s and
+MFU (`utils.flops.train_mfu`, against the H100 SXM's dense bf16 peak).
 
 Output: one line per phase, then the card's name and power limit, then one
-JSON line {"kernels": [...]} (times, launches, errors and bounds), and last
+JSON line {"kernels": [...]} (times, errors, bounds, and the launches of
+the two main paths, phases 4-7; phases 8-10 print theirs on lines of
+their own), and last
 {"ok": true, "device": {...}}. Without a CUDA device, or without the
 package beside it, the script exits non-zero and prints no result.
 """
@@ -63,11 +82,9 @@ from __future__ import annotations
 import csv
 import json
 import os
-import subprocess
 import sys
 import tempfile
 import time
-import types
 
 import numpy as np
 import torch
@@ -119,33 +136,6 @@ def expect_refused(label: str, fn, launches) -> None:
         fail(f"{label}: the wrapper took it")
     if launches() != before:
         fail(f"{label}: launched before refusing")
-
-
-def cuda_time_ms(fn, iters: int = 10, warmup: int = 2,
-                 queued: bool = True) -> float:
-    """Device ms per call of `fn`, CUDA events around `iters` calls. With
-    `queued`, the calls are queued behind a device sleep that outlasts the
-    host's time to issue them, so a kernel shorter than its wrapper's
-    Python is timed on the device (a call that synchronises inside still
-    waits for the host). Without it they run as the host issues them, and a
-    call whose host cost exceeds its kernel's time is timed at the host's
-    rate."""
-    torch.cuda.synchronize()
-    t = time.perf_counter()
-    for _ in range(warmup):
-        fn()
-    host_s = (time.perf_counter() - t) / warmup
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    if queued:  # cycles at up to 2 GHz: twice the issue time, at most 50 ms
-        torch.cuda._sleep(int(2e9 * min(0.05, 2 * iters * host_s)))
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
 
 
 def level_shapes():
@@ -233,6 +223,7 @@ def hold_k2(label, feats, rois, g):
 def check_roi_align(dev, report):
     from dgod_tpu_torch.ops import cuda_roi_align as K
     from dgod_tpu_torch.ops.roi_align import roi_align_plain
+    from dgod_tpu_torch.utils.timing import device_time_ms
 
     rng = np.random.RandomState(0)
     shapes = level_shapes()
@@ -273,15 +264,17 @@ def check_roi_align(dev, report):
     # times at the train shape (bf16 features, N=512); K2 is the whole
     # backward: the geometry pass and the tiled gather
     r = rois[N_TRAIN]
-    k1_ms = cuda_time_ms(lambda: K.roi_align_fwd_cuda(feats16, r))
-    k1_plain = cuda_time_ms(lambda: roi_align_plain(feats16, r), iters=3)
-    k2_ms = cuda_time_ms(lambda: K.roi_align_bwd_cuda(feats16, r, g))
+    k1_ms = device_time_ms(lambda: K.roi_align_fwd_cuda(feats16, r), dev)
+    k1_plain = device_time_ms(lambda: roi_align_plain(feats16, r), dev,
+                              iters=3)
+    k2_ms = device_time_ms(lambda: K.roi_align_bwd_cuda(feats16, r, g), dev)
     out16 = roi_align_plain(leaves16, r)
-    k2_plain = cuda_time_ms(lambda: torch.autograd.grad(
-        out16, leaves16, g, retain_graph=True), iters=3)
-    k1_pred = cuda_time_ms(lambda: K.roi_align_fwd_cuda(feats16, rois[N_TEST]))
-    k1_issued = [cuda_time_ms(lambda n=n: K.roi_align_fwd_cuda(
-        feats16, rois[n]), queued=False) for n in (N_TRAIN, N_TEST)]
+    k2_plain = device_time_ms(lambda: torch.autograd.grad(
+        out16, leaves16, g, retain_graph=True), dev, iters=3)
+    k1_pred = device_time_ms(
+        lambda: K.roi_align_fwd_cuda(feats16, rois[N_TEST]), dev)
+    k1_issued = [device_time_ms(lambda n=n: K.roi_align_fwd_cuda(
+        feats16, rois[n]), dev, queued=False) for n in (N_TRAIN, N_TEST)]
     print(f"K1 {k1_ms:.3f} ms (plain {k1_plain:.3f}; previous design "
           f"{PREVIOUS_MS['K1 train']:.3f}) at B={B} N={N_TRAIN} bf16; "
           f"{k1_pred:.3f} ms (previous design {PREVIOUS_MS['K1 predict']:.3f})"
@@ -341,6 +334,7 @@ def k3_check_inputs(anchors: torch.Tensor):
 def check_iou_match(dev, anchors, report):
     from dgod_tpu_torch.ops import cuda_matchers as K
     from dgod_tpu_torch.ops.matchers import match_anchors_plain
+    from dgod_tpu_torch.utils.timing import device_time_ms
 
     R = anchors.shape[0]
     gt_t, valid_t = k3_check_inputs(anchors)
@@ -362,12 +356,12 @@ def check_iou_match(dev, anchors, report):
             fail("K3: an image with no valid GT must be all BELOW_LOW")
         if allow and not bool((got[4] >= 0).all()):
             fail("K3: a valid gt of best 0 must rescue every anchor")
-    ms = cuda_time_ms(lambda: K.iou_match_cuda(gt_t, valid_t, anchors, 0.7,
-                                               0.3, True))
-    issued = cuda_time_ms(lambda: K.iou_match_cuda(
-        gt_t, valid_t, anchors, 0.7, 0.3, True), queued=False)
-    plain = cuda_time_ms(lambda: match_anchors_plain(
-        gt_t, valid_t, anchors, 0.7, 0.3, True), iters=3)
+    ms = device_time_ms(lambda: K.iou_match_cuda(gt_t, valid_t, anchors, 0.7,
+                                                 0.3, True), dev)
+    issued = device_time_ms(lambda: K.iou_match_cuda(
+        gt_t, valid_t, anchors, 0.7, 0.3, True), dev, queued=False)
+    plain = device_time_ms(lambda: match_anchors_plain(
+        gt_t, valid_t, anchors, 0.7, 0.3, True), dev, iters=3)
     # the ops these inputs need: the intersection test (two min, two max,
     # two subtractions, two compares) for every valid (gt, anchor) pair,
     # and the rest of the IoU and the max (12 more, one division) for each
@@ -454,6 +448,7 @@ def check_fcos_match(dev, report):
     from dgod_tpu_torch.models.fcos import fcos_anchors_for
     from dgod_tpu_torch.ops import cuda_matchers as K
     from dgod_tpu_torch.ops.matchers import fcos_match
+    from dgod_tpu_torch.utils.timing import device_time_ms
 
     anchors_np, counts = fcos_anchors_for(CANVAS)
     R = anchors_np.shape[0]
@@ -477,12 +472,13 @@ def check_fcos_match(dev, report):
             fail("K4: an image with no valid GT must match nothing")
         if not all(fg[1:]):
             fail("K4: every image with gt must match some location")
-    ms = cuda_time_ms(lambda: K.fcos_match_cuda(anchors, gt_t, valid_t,
-                                                counts))
-    plain = cuda_time_ms(lambda: fcos_match(anchors, gt_t, valid_t, counts),
-                         iters=3)
-    issued = cuda_time_ms(lambda: K.fcos_match_cuda(anchors, gt_t, valid_t,
-                                                    counts), queued=False)
+    ms = device_time_ms(lambda: K.fcos_match_cuda(anchors, gt_t, valid_t,
+                                                  counts), dev)
+    plain = device_time_ms(lambda: fcos_match(anchors, gt_t, valid_t, counts),
+                           dev, iters=3)
+    issued = device_time_ms(lambda: K.fcos_match_cuda(anchors, gt_t, valid_t,
+                                                      counts), dev,
+                            queued=False)
     print(f"K4 {ms:.4f} ms (plain {plain:.3f}; previous design "
           f"{PREVIOUS_MS['K4']:.3f}) at B={B} G={G} R={R},"
           f" valid gt per image {valid.sum(1).tolist()}; timed as issued, "
@@ -625,6 +621,7 @@ def hold_k6(label, args, thr):
 def check_nms_topk(dev, report):
     from dgod_tpu_torch.ops import cuda_nms as K
     from dgod_tpu_torch.ops.nms import _class_offsets, nms_topk_plain
+    from dgod_tpu_torch.utils.timing import device_time_ms
 
     rng = np.random.RandomState(12)
     max_diff = 0
@@ -652,10 +649,10 @@ def check_nms_topk(dev, report):
                 idx, torch.sort(scores, dim=1, descending=True, stable=True)[1]
                 [:, :100]):
             fail("K6: the disjoint rows must pick their first 100 ranks")
-        ms = cuda_time_ms(lambda: K.nms_topk_cuda(off, scores, valid, thr,
-                                                  100))
-        plain = cuda_time_ms(lambda: nms_topk_plain(off, scores, valid, thr,
-                                                    100), iters=3)
+        ms = device_time_ms(lambda: K.nms_topk_cuda(off, scores, valid, thr,
+                                                    100), dev)
+        plain = device_time_ms(lambda: nms_topk_plain(off, scores, valid, thr,
+                                                      100), dev, iters=3)
         print(f"K6 {ms:.4f} ms (plain {plain:.3f}; previous design "
               f"{PREVIOUS_MS[f'K6 {label}']:.4f}) at B={B} K={K_} k=100, "
               f"{label} rows")
@@ -787,6 +784,7 @@ def hold_k5(label, got, ref_boxes, levels):
 def check_proposals(dev, report):
     from dgod_tpu_torch.ops import cuda_proposals as K
     from dgod_tpu_torch.ops.proposals import decode_nms_plain
+    from dgod_tpu_torch.utils.timing import device_time_ms
 
     rng = np.random.RandomState(13)
     max_err = 0.0
@@ -805,10 +803,10 @@ def check_proposals(dev, report):
                  "nothing")
         print(f"  plain decode_nms keeps the same as the kernel: "
               f"{int((ref_keep != keep).sum())} flags differ")
-        ms = cuda_time_ms(lambda: K.decode_nms_cuda(d, a, sz, levels,
-                                                    RPN_NMS))
-        plain = cuda_time_ms(lambda: decode_nms_plain(d, a, s, sz, levels,
-                                                      RPN_NMS), iters=3)
+        ms = device_time_ms(lambda: K.decode_nms_cuda(d, a, sz, levels,
+                                                      RPN_NMS), dev)
+        plain = device_time_ms(lambda: decode_nms_plain(d, a, s, sz, levels,
+                                                        RPN_NMS), dev, iters=3)
         print(f"K5 {ms:.3f} ms (plain {plain:.3f}; previous design "
               f"{PREVIOUS_MS['K5 ' + name]:.3f}) at B={B} K={sum(levels)}")
         if name == "train":  # the row of the kernels line
@@ -821,35 +819,13 @@ def check_proposals(dev, report):
     report["K5"]["max_abs_err"] = max_err
 
 
-def synthetic_batch(rng: np.random.RandomState, b: int, canvas, num_domains):
-    H, W = canvas
-    boxes = np.zeros((b, G, 4), np.float32)
-    labels = np.zeros((b, G), np.int32)
-    valid = np.zeros((b, G), bool)
-    for i in range(b):
-        n = rng.randint(2, 9)
-        xy = rng.uniform([0, 0], [W * 0.8, H * 0.8], (n, 2))
-        wh = rng.uniform(0.05, 0.3, (n, 2)) * [W, H]
-        boxes[i, :n] = np.concatenate([xy, np.minimum(xy + wh, [W, H])], 1)
-        labels[i, :n] = rng.randint(1, 9, n)
-        valid[i, :n] = True
-    return {
-        "image": rng.randint(0, 256, (b, H, W, 3)).astype(np.uint8),
-        "boxes": boxes,
-        "labels": labels,
-        "gt_valid": valid,
-        "domain": (np.arange(b) % num_domains).astype(np.int32),
-        "image_size": np.tile(np.float32(canvas), (b, 1)),
-        "scale_back": np.ones((b, 2), np.float32),
-    }
-
-
 def check_small_model_card_vs_cpu(dev, family):
     """A small float32 model on the card (kernels) and on the CPU (plain
     versions), same weights, batch and draws: the losses must agree."""
     from dgod_tpu_torch.models.dg_fcos import DGFCOSModel
     from dgod_tpu_torch.models.dg_frcnn import DGFRCNNModel, Draws, batch_to_torch
     from dgod_tpu_torch.models.faster_rcnn import FRCNNConfig
+    from dgod_tpu_torch.utils.synthetic import synthetic_batch
 
     canvas = (128, 256)
     kw = dict(num_domains=2, canvas=canvas, seed=3,
@@ -877,29 +853,6 @@ def check_small_model_card_vs_cpu(dev, family):
             fail(f"small {family}: card and CPU losses differ in mode {mode}")
 
 
-def calibrate_frozen_bn(model, images):
-    """Set every FrozenBatchNorm's mean/var to the per-channel statistics
-    of its own input on `images`, in network order. Random convolutions
-    under identity batch-norm let ResNet-50's activations grow block by
-    block until the first SGD steps diverge; a pretrained checkpoint's
-    statistics keep them in range, and these stand in for them."""
-    from dgod_tpu_torch.models.resnet import FrozenBatchNorm
-
-    def pre_hook(mod, inputs):
-        x = inputs[0].float()
-        mod.mean.copy_(x.mean(dim=(0, 2, 3)))
-        mod.var.copy_(x.var(dim=(0, 2, 3), unbiased=False))
-
-    handles = [m.register_forward_pre_hook(pre_hook) for m in model.modules()
-               if isinstance(m, FrozenBatchNorm)]
-    try:
-        with torch.no_grad():
-            model.detector.features(model.normalize(images))
-    finally:
-        for h in handles:
-            h.remove()
-
-
 def snapshot(model):
     return {n: p.detach().clone() for n, p in model.named_parameters()}
 
@@ -915,59 +868,36 @@ def changed_groups(model, labels, before):
 def build_main_path(dev, family: str = "FRCNN"):
     """The full-width model of one family (phases 4-6) with its batch,
     optimizer state, fused pair steps (in the DG schedule's order) and eval
-    step."""
-    from dgod_tpu_torch.models.dg_fcos import DGFCOSModel
-    from dgod_tpu_torch.models.dg_frcnn import DGFRCNNModel, batch_to_torch
-    from dgod_tpu_torch.train import steps as S
-    from dgod_tpu_torch.train.optim import init_opt_state
+    step: `utils/synthetic.build_dg_cycle`, the bench's cycle, on one
+    batch."""
+    from dgod_tpu_torch.utils.synthetic import build_dg_cycle
 
-    cls = {"FRCNN": DGFRCNNModel, "FCOS": DGFCOSModel}[family]
-    model = cls(num_classes=9, num_domains=3, canvas=CANVAS,
-                compute_dtype=torch.bfloat16, device=dev, seed=0)
-    batch = batch_to_torch(synthetic_batch(np.random.RandomState(5), B,
-                                           CANVAS, 3), dev)
-    calibrate_frozen_bn(model, batch["image"])
-    scheduler = S.ModeScheduler(dg=True)
-    pairs = []
-    for _ in range(4):
-        m0, mk = scheduler.next_mode(), scheduler.next_mode()
-        if m0 != 0:
-            fail("the DG schedule must alternate mode 0 with mode k")
-        pairs.append(mk)
-    opt_config, lr = S.make_optimizer(family)
-    return types.SimpleNamespace(
-        model=model, batch=batch, opt_config=opt_config, lr=lr,
-        opt_state=init_opt_state(dict(model.named_parameters()), opt_config),
-        gen=torch.Generator(device=dev).manual_seed(0),
-        steps={k: S.make_pair_step(model, k, REG_WEIGHTS, opt_config, lr)
-               for k in pairs},
-        eval_step=S.make_eval_step(model))
+    return build_dg_cycle(family, dev, canvas=CANVAS, batch=B)
 
 
 def dg_cycle(path, before_pair=None, after_pair=None):
-    """One DG cycle of fused pairs (0,k) and a predict on `path`.
+    """One DG cycle of fused pairs (0,k) and a predict on `path`, each pair
+    synchronised (`utils/synthetic.run_dg_cycle`).
 
     `before_pair(k)` runs before pair (0,k) and its result is passed on as
     `after_pair(k, metrics, state, ms)` after it. Returns the host-clock ms
     of each synchronised pair step, that of the predict, and the
     detections."""
+    from dgod_tpu_torch.utils.synthetic import run_dg_cycle
+    from dgod_tpu_torch.utils.timing import host_ms
+
+    batch = path.batches[0]
     pair_ms = {}
-    for k, step in path.steps.items():
-        state = before_pair(k) if before_pair else None
-        d0 = path.model.make_draws(B, G, path.gen, with_rpn=True)
-        dk = path.model.make_draws(B, G, path.gen, with_rpn=False)
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        path.opt_state, metrics = step(path.opt_state, path.batch, d0, dk)
-        torch.cuda.synchronize()
-        pair_ms[k] = (time.perf_counter() - t) * 1e3
+
+    def timed(k, metrics, state, ms):
+        pair_ms[k] = ms
         if after_pair:
-            after_pair(k, metrics, state, pair_ms[k])
-    torch.cuda.synchronize()
-    t = time.perf_counter()
-    dets = path.eval_step(path.batch)
-    torch.cuda.synchronize()
-    return pair_ms, (time.perf_counter() - t) * 1e3, dets
+            after_pair(k, metrics, state, ms)
+
+    run_dg_cycle(path, before_pair, timed, sync_pairs=True)
+    dets, pred_ms = host_ms(lambda: path.eval_step(batch),
+                            batch["image"].device)
+    return pair_ms, pred_ms, dets
 
 
 def reset_counts():
@@ -1047,6 +977,7 @@ class LastCalls:
         from dgod_tpu_torch.ops.nms import nms_topk_plain
         from dgod_tpu_torch.ops.proposals import decode_nms_plain
         from dgod_tpu_torch.ops.roi_align import roi_align_plain
+        from dgod_tpu_torch.utils.timing import device_time_ms
 
         plain = {"K3": match_anchors_plain, "K4": fcos_match,
                  "K6": nms_topk_plain}
@@ -1091,9 +1022,10 @@ class LastCalls:
                 fail(f"{family}: {kid} disagrees with its plain version on "
                      f"the main path's inputs")
             if kid in ("K3", "K4", "K6"):
-                ms = cuda_time_ms(lambda: self.originals[kid](*a, **k))
-                issued = cuda_time_ms(lambda: self.originals[kid](*a, **k),
-                                      queued=False)
+                dev = a[0].device
+                ms = device_time_ms(lambda: self.originals[kid](*a, **k), dev)
+                issued = device_time_ms(lambda: self.originals[kid](*a, **k),
+                                        dev, queued=False)
                 if kid == "K6":  # boxes, scores, valid
                     what = "live entries per image " + str(
                         (a[2] & (a[1] > float("-inf"))).sum(1).tolist())
@@ -1112,6 +1044,7 @@ def run_main_path(dev, family: str):
     """Phases 4-6 for one family: two full-width DG training cycles and
     predicts, with the kernels' launches counted from 0."""
     from dgod_tpu_torch.train import steps as S
+    from dgod_tpu_torch.utils import flops
 
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -1183,7 +1116,274 @@ def run_main_path(dev, family: str):
     print(f"{family} pair steps ms: "
           f"{json.dumps({f'(0,{k})': v for k, v in pair_ms.items()})}; "
           f"predict ms: {pred_ms:.1f}")
+    # the second cycle: 4 pairs, each counting its batch twice
+    img_s = 2 * B * len(pair_ms) / (sum(pair_ms.values()) / 1e3)
+    m = flops.train_mfu(family, CANVAS, B, img_s)
+    print(f"{family} DG cycle (main path, second cycle, synchronised pairs): "
+          f"{img_s:.2f} images/s, {m['model_tflops_per_sec']:.2f} model "
+          f"TFLOP/s, mfu {m['mfu']:.4f} of {m['peak_tflops']:.1f} TFLOP/s "
+          f"(utils.flops.train_mfu, {m['flops_per_image'] / 1e9:.1f} "
+          f"GFLOP/image)")
     del path, model, dets
+    return counts
+
+
+# torchvision's names for the port's (utils/weights.py maps them back)
+_TV_BN = {"scale": "weight", "bias": "bias", "mean": "running_mean",
+          "var": "running_var"}
+COCO_CLASSES = 91
+
+
+def torchvision_name(name: str, family: str) -> str:
+    """A detector state_dict name -> the torchvision checkpoint's name
+    (FRCNN as torchvision 0.8.2 spells it, FCOS as 0.13 does)."""
+    import re
+
+    m = re.fullmatch(r"backbone\.body\.layer(\d)_block(\d+)\.(.*)", name)
+    if m:
+        base, tail = f"backbone.body.layer{m[1]}.{m[2]}", m[3]
+        c = re.fullmatch(r"Conv_(\d)\.weight", tail)
+        if c:
+            return f"{base}.conv{int(c[1]) + 1}.weight"
+        if tail == "downsample_conv.weight":
+            return f"{base}.downsample.0.weight"
+        mod, leaf = tail.split(".")
+        mod = "downsample.1" if mod == "downsample_bn" else mod
+        return f"{base}.{mod}.{_TV_BN[leaf]}"
+    if name.startswith("backbone.body.bn1."):
+        return "backbone.body.bn1." + _TV_BN[name.split(".")[-1]]
+    nest = "0." if family == "FCOS" else ""
+    m = re.fullmatch(r"backbone\.fpn\.(lateral|output)(\d)\.(weight|bias)",
+                     name)
+    if m:
+        blocks = "inner_blocks" if m[1] == "lateral" else "layer_blocks"
+        return f"backbone.fpn.{blocks}.{m[2]}.{nest}{m[3]}"
+    m = re.fullmatch(r"backbone\.p6p7\.(p6|p7)\.(weight|bias)", name)
+    if m:
+        return f"backbone.fpn.extra_blocks.{m[1]}.{m[2]}"
+    m = re.fullmatch(r"head\.(cls|reg)_(conv|gn)(\d)\.(\w+)", name)
+    if m:
+        tower = {"cls": "classification_head", "reg": "regression_head"}
+        i = 3 * int(m[3]) + (m[2] == "gn")
+        leaf = {"scale": "weight"}.get(m[4], m[4])
+        return f"head.{tower[m[1]]}.conv.{i}.{leaf}"
+    for ours, tv in (("head.cls_logits", "head.classification_head"
+                      ".cls_logits"),
+                     ("head.bbox_reg", "head.regression_head.bbox_reg"),
+                     ("head.bbox_ctrness", "head.regression_head"
+                      ".bbox_ctrness"),
+                     ("rpn_head", "rpn.head"),
+                     ("box_head", "roi_heads.box_head"),
+                     ("predictor", "roi_heads.box_predictor")):
+        if name.startswith(ours + "."):
+            return tv + name[len(ours):]
+    if name.startswith("backbone.body."):
+        return name  # the stem conv
+    raise KeyError(f"no torchvision name for {name}")
+
+
+def write_torchvision_file(detector, family: str, path: str,
+                           imagenet: bool = False):
+    """`detector`'s tensors as a torchvision checkpoint at `path`: COCO's
+    class-dependent layers (91 classes, random from a seed), fc6's input
+    flattened CHW, a BN step counter beside each BN, and for `imagenet` a
+    plain resnet50 (the body with torchvision's prefix-free names and a
+    1000-way fc). -> {torchvision name: the tensor written}."""
+    gen = torch.Generator().manual_seed(91)
+    sd = {}
+    for name, t in detector.state_dict().items():
+        if imagenet and not name.startswith("backbone.body."):
+            continue
+        t = t.detach().cpu().clone()
+        tv = torchvision_name(name, family)
+        if name == "box_head.fc6.weight":  # the port flattens HWC
+            t = (t.reshape(t.shape[0], 7, 7, 256).permute(0, 3, 1, 2)
+                 .reshape(t.shape[0], -1).contiguous())
+        elif name.startswith("predictor.") or name.startswith(
+                "head.cls_logits."):
+            rows = COCO_CLASSES * (4 if "bbox_pred" in name else 1)
+            t = torch.randn((rows,) + t.shape[1:], generator=gen) * 0.01
+        key = sd_key(tv, imagenet)
+        sd[key] = t
+        if key.endswith("running_var"):
+            sd[key[:-len("running_var")] + "num_batches_tracked"] = \
+                torch.tensor(1000)
+    if imagenet:
+        sd["fc.weight"] = torch.randn(1000, 2048, generator=gen) * 0.01
+        sd["fc.bias"] = torch.zeros(1000)
+    torch.save(sd, path)
+    return sd
+
+
+def sd_key(tv: str, imagenet: bool) -> str:
+    """A plain resnet50 names its body's tensors without the prefix."""
+    body = "backbone.body."
+    return tv[len(body):] if imagenet and tv.startswith(body) else tv
+
+
+def run_warm_start_phase(dev, family: str, root: str):
+    """The torchvision warm start on the card, for one family: the
+    calibrated init of one model, written as a torchvision checkpoint
+    (FRCNN and FCOS as COCO detectors; FCOS also as an ImageNet resnet50),
+    loaded by `train_driving_dg_torch.py --torch_weights` (`cli.main`,
+    `--max_epochs 0`: the load, then the test sweep) into the CLI's own
+    model (seed 42). Every ported tensor must equal the written one bit for
+    bit, the class-dependent layers and (from the resnet50) everything
+    outside the body must keep that model's init, the test mAP must lie in
+    [0, 1], and a pair step (0,1) of the CLI's Trainer must be finite;
+    counts from 0 around the CLI run and the pair step."""
+    from dgod_tpu_torch import cli
+    from dgod_tpu_torch.models.dg_fcos import DGFCOSModel
+    from dgod_tpu_torch.models.dg_frcnn import DGFRCNNModel, batch_to_torch
+    from dgod_tpu_torch.utils.synthetic import (calibrate_frozen_bn,
+                                                synthetic_batch)
+
+    cls = {"FRCNN": DGFRCNNModel, "FCOS": DGFCOSModel}[family]
+    batch = batch_to_torch(synthetic_batch(np.random.RandomState(8), B,
+                                           CANVAS, 3), dev)
+    source = cls(num_classes=9, num_domains=3, canvas=CANVAS, device=dev,
+                 seed=1)
+    calibrate_frozen_bn(source, batch["image"])
+    source_sd = {k: v.detach().cpu().clone()
+                 for k, v in source.detector.state_dict().items()}
+    # the CLI's model before the load: the same draws on the CPU
+    init = cls(num_classes=9, num_domains=3, canvas=CANVAS, device="cpu",
+               seed=42).detector.state_dict()
+    routes = [(family, False)] + ([("resnet", True)] if family == "FCOS"
+                                  else [])
+    want = {k: n + expected_launches(family, 1)[k]
+            for k, n in expected_launches(family).items()}
+    counts = dict.fromkeys(want, 0)
+    for route, imagenet in routes:
+        path = os.path.join(root, f"{family}_{route}.pth")
+        written = write_torchvision_file(source.detector, family, path,
+                                         imagenet)
+        built = []
+
+        class Capture(cli.Trainer):
+            def __init__(self, *a, **k):
+                super().__init__(*a, **k)
+                built.append(self)
+
+        argv = ["--model", family, "--exp", "dg", "--source_domains", "ABC",
+                "--target_domains", "I", "--batch_size", str(B),
+                "--eval_batch_size", str(B), "--data_root", root,
+                "--weights_folder", os.path.join(root, f"warm_{route}"),
+                "--weights_file", family, "--torch_weights", path,
+                "--max_epochs", "0"]
+        trainer_cls, cli.Trainer = cli.Trainer, Capture
+        reset_counts()  # this path starts here
+        try:
+            t = time.perf_counter()
+            result = cli.main(argv)
+            torch.cuda.synchronize()
+            run_s = time.perf_counter() - t
+        finally:
+            cli.Trainer = trainer_cls
+        trainer = built[0]
+        got = {k: v.detach().cpu()
+               for k, v in trainer.model.detector.state_dict().items()}
+        ported, kept, bad = 0, 0, []
+        for name, t in got.items():
+            # what was written is the source's tensor (fc6 permuted back)
+            class_dep = (name.startswith("predictor.")
+                         or name.startswith("head.cls_logits."))
+            if (sd_key(torchvision_name(name, family), imagenet) in written
+                    and not class_dep):
+                want_t, ported = source_sd[name], ported + 1
+            else:
+                want_t, kept = init[name], kept + 1
+            if not torch.equal(t, want_t):
+                bad.append(name)
+        stem = "backbone.body.conv1.weight"  # the two inits must differ
+        if bad or ported == 0 or torch.equal(init[stem], source_sd[stem]):
+            fail(f"warm start {family} from {route}: {len(bad)} tensors "
+                 f"differ from what was written or kept, e.g. {bad[:3]}")
+        map50 = float(result["map_50"])
+        if not 0.0 <= map50 <= 1.0:
+            fail(f"warm start {family} from {route}: test mAP {map50}")
+        print(f"warm start {family} from a torchvision {route} checkpoint "
+              f"({len(written)} tensors) through the CLI: {ported} ported "
+              f"bit for bit, {kept} kept the model's init; test mAP@0.5 "
+              f"{map50:.6f}; load and test {run_s:.1f} s")
+        d0 = trainer.model.make_draws(B, G, trainer.gen, with_rpn=True)
+        dk = trainer.model.make_draws(B, G, trainer.gen, with_rpn=False)
+        _, metrics = trainer.pair_steps[1](trainer.opt_state, batch, d0, dk)
+        vals = {n: float(v) for n, v in metrics.items()}
+        delta = read_counts()  # and ends here
+        if not all(np.isfinite(v) for v in vals.values()):
+            fail(f"warm start {family} from {route}: non-finite pair step "
+                 f"{vals}")
+        if delta != want:
+            fail(f"warm start {family}: launches {delta}, expected {want} "
+                 f"(a predict and a pair)")
+        print(f"  pair (0,1) from the warm start: loss0 {vals['loss0']:.4f} "
+              f"loss1 {vals['loss']:.6f}; launches with the test sweep "
+              f"{delta}")
+        for kid, n in delta.items():
+            counts[kid] += n
+        del trainer, built
+    del source
+    return counts
+
+
+def learn_launches(family: str):
+    return ({"K1", "K2", "K3", "K5", "K6"} if family == "FRCNN"
+            else {"K4", "K6"})
+
+
+def learn_size(family: str):
+    """The size at which `family` must learn. FCOS: the CPU learning
+    test's (scripts/check_convergence_torch.py SMOKE: 120x240 in 128x256,
+    8 images per domain, batch 4, blocks (1,1,1,1)), to train mAP@0.5 0.6
+    within 60 epochs. FRCNN does not get there at that size, and neither
+    does the JAX package (train mAP 0 after 60 epochs on the CPU: its 240
+    steps all lie inside the 600-step warm-up). So FRCNN learns at MID
+    (300x600 in 320x608, 16 images per domain, batch 8, blocks (3,4,6,3)),
+    the smallest size at which the JAX package is known to reach 0.6 (on
+    the CPU at epoch 98 of 100, PERF.md), to 0.6 within those 100
+    epochs."""
+    sys.path.insert(0, os.path.join(os.path.dirname(
+        os.path.abspath(__file__)), "scripts"))
+    import check_convergence_torch as cc
+
+    return cc.SMOKE if family == "FCOS" else cc.MID
+
+
+def run_learn_phase(dev, family: str, root: str):
+    """The port learns on the card: `family`, non_dg, at `learn_size`,
+    through the kernels, with the JAX convergence script's recipe: random
+    weights from model seed 0, FrozenBatchNorm at identity (FRCNN with the
+    script's 600-step LR warm-up). Counts from 0 around it; the
+    transforms' geometry is restored after it."""
+    size = learn_size(family)
+    import check_convergence_torch as cc
+    from dgod_tpu_torch.data import transforms as T
+
+    saved = {k: getattr(T, k) for k in
+             ("CANVAS", "TRAIN_SIZE", "MIN_SIZE", "MAX_SIZE", "MIN_AREA")}
+    warmup = cc.FRCNN_WARMUP if family == "FRCNN" else 0
+    reset_counts()  # this path starts here
+    try:
+        r = cc.run_one(family, False, warmup_steps=warmup, tmpdir=root,
+                       device=dev, calibrate_bn=False, seed=0, **size)
+    finally:
+        for k, v in saved.items():
+            setattr(T, k, v)
+    counts = read_counts()  # and ends here
+    print(f"learn {family} non_dg at {size['image_hw']} in "
+          f"{size['canvas']}, blocks {size['block_counts']}, "
+          f"{size['n_per_domain']} per domain, batch {size['batch_size']}: "
+          f"best train mAP@0.5 {r['best_map_50']:.4f} in {r['epochs']} "
+          f"of at most {size['max_epochs']} epochs, {r['steps']} steps, "
+          f"{r['wall_s']} s; curve "
+          f"{[e['map_50'] for e in r['curve']]}; launches {counts}")
+    if not r["reached"]:
+        fail(f"learn {family}: train mAP@0.5 {r['best_map_50']} < "
+             f"{size['target']} after {r['epochs']} epochs")
+    missing = [k for k in learn_launches(family) if counts[k] <= 0]
+    if missing:
+        fail(f"learn {family}: {missing} were not launched")
     return counts
 
 
@@ -1245,6 +1445,7 @@ def save_warm_start(dev, family: str, root: str, ckpt: str):
     from dgod_tpu_torch.train import steps as S
     from dgod_tpu_torch.train.checkpoint import CheckpointStore
     from dgod_tpu_torch.train.optim import init_opt_state
+    from dgod_tpu_torch.utils.synthetic import calibrate_frozen_bn
 
     _, csv_tpl, root_tpl = DOMAIN_SPECS["a"]
     data = DrivingDataset(os.path.join(root, csv_tpl.format(split="train")),
@@ -1363,10 +1564,9 @@ def main() -> int:
     dev = torch.device("cuda")
 
     # 1. the card
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, check=True,
-        timeout=60).stdout.strip().splitlines()[0]
+    from dgod_tpu_torch.utils.timing import card
+
+    smi = card(dev)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     print(f"card: {torch.cuda.get_device_name(0)}; torch {torch.__version__} "
@@ -1397,22 +1597,30 @@ def main() -> int:
     for family in ("FRCNN", "FCOS"):
         check_small_model_card_vs_cpu(dev, family)
 
-    # 4-7. the main path of each family; 8. the CLI of each family
-    counts = {}
-    runs = [lambda f=f: run_main_path(dev, f) for f in ("FRCNN", "FCOS")]
+    # 4-7. the main path of each family: its counts are the kernels line's
+    # launches; 8. the CLI of each family; 9. the torchvision warm start
+    # of each; 10. each family learns. Phases 8-10 check their own
+    # launches and print them on lines of their own
+    counts = dict.fromkeys(("K1", "K2", "K3", "K4", "K5", "K6"), 0)
+    for family in ("FRCNN", "FCOS"):
+        for kid, n in run_main_path(dev, family).items():
+            counts[kid] += n
+    for kid, n in counts.items():
+        if n <= 0:
+            fail(f"{kid} was not launched on the main paths")
+    print(f"main paths' launches (the kernels line): {counts}")
     with tempfile.TemporaryDirectory() as root:
         t = time.perf_counter()
         write_cli_dataset(root)
         print(f"CLI dataset: {sum(CLI_SPLITS.values())} PNGs of "
               f"{CLI_IMAGE} written in {time.perf_counter() - t:.1f} s")
-        runs += [lambda f=f: run_cli_phase(dev, f, root)
-                 for f in ("FRCNN", "FCOS")]
-        for run in runs:
-            for kid, n in run().items():
-                counts[kid] = counts.get(kid, 0) + n
-    for kid, n in counts.items():
-        if n <= 0:
-            fail(f"{kid} was not launched on any main path")
+        phases = [("CLI", run_cli_phase), ("warm start", run_warm_start_phase)]
+        for label, run in phases:
+            for family in ("FRCNN", "FCOS"):
+                print(f"{label} {family} launches: {run(dev, family, root)}")
+        for family in ("FCOS", "FRCNN"):
+            print(f"learn {family} launches: "
+                  f"{run_learn_phase(dev, family, root)}")
 
     meta = {
         "K1": ("roi_align_fwd", "dgod_tpu_torch/csrc/roi_align.cu",

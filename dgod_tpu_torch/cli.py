@@ -10,7 +10,8 @@ sequential domain indices in that order. Everything is seeded to 42
 (train_driving_dg.py:112-116).
 
 `main` runs on the card; the CPU is reached only through its `device`
-keyword (tests). `--mesh`, `--torch_weights` and `--process_loader` are
+keyword (tests). `--torch_weights` warm-starts from a torchvision
+checkpoint when no `.ckpt` exists. `--mesh` and `--process_loader` are
 parsed as in the JAX package and raise NotImplementedError when set: the
 port has them in ROADMAP Queue A.
 """
@@ -42,7 +43,6 @@ DOMAIN_SPECS = {
 # flags the port parses but does not run yet, and where they stand
 NOT_PORTED = {
     "mesh": "Queue A 12 (multi-GPU)",
-    "torch_weights": "Queue A 13 (loading a torchvision .pth)",
     "process_loader": "Queue A 14 (ProcessTrainLoader)",
 }
 
@@ -78,8 +78,10 @@ def parser_args(argv=None):
                              "scalars mirror the JSONL metrics")
     parser.add_argument("--torch_weights", type=str, default=None,
                         help="torchvision .pth checkpoint as the pretrained "
-                             "init (not in the port yet: ROADMAP "
-                             + NOT_PORTED["torch_weights"] + ")")
+                             "init (COCO fasterrcnn_resnet50_fpn / "
+                             "fcos_resnet50_fpn, or an ImageNet resnet50 "
+                             "for the backbone); ignored when the .ckpt "
+                             "exists")
     parser.add_argument("--warmup_steps", type=int, default=0,
                         help="linear LR warmup; use ~500-1000 when training "
                              "from scratch (the reference warm-starts COCO "
@@ -198,6 +200,7 @@ def main(argv=None, device=None):
         # reference-exact replay re-samples augmentation on the duplicate
         # batch, which the fused pair step cannot reproduce
         fused_pairs=not args.reference_quirks,
+        torch_weights=args.torch_weights,
         device=dev,
     )
     trainer.fit()

@@ -12,6 +12,8 @@ Replaces the reference's PyTorch-Lightning Trainer usage
   patience 5), ModelCheckpoint(best val_acc), EarlyStopping(patience 10)
   (train_driving_dg.py:160-163, DGFRCNN.py:105),
 - warm start from an existing checkpoint (train_driving_dg.py:154-155),
+  else, given `torch_weights`, from a torchvision checkpoint (the
+  reference's COCO / ImageNet init, fasterrcnn.py:320-322, fcos.py:776-783),
 - `test()` = one validation sweep over the target domain with the best
   checkpoint reloaded, the reference's 0-epoch-fit quirk
   (train_driving_dg.py:166-168).
@@ -30,6 +32,7 @@ import torch
 from ..data.loader import device_prefetch, to_tensor
 from ..device import resolve_device
 from ..eval import MeanAveragePrecision
+from ..utils import weights as weights_lib
 from ..utils.logging import MetricsLogger
 from . import steps as step_lib
 from .checkpoint import make_store, tree_to
@@ -57,6 +60,7 @@ class Trainer:
         tb_dir: str = None,
         warmup_steps: int = 0,
         fused_pairs: bool = True,
+        torch_weights: str = None,
         device=None,
     ):
         self.device = resolve_device(device)
@@ -74,6 +78,14 @@ class Trainer:
         self.warmup_steps = warmup_steps
         self.gen = torch.Generator(device=self.device).manual_seed(seed)
         self.store = make_store(ckpt_path)
+        # a checkpoint to resume from overwrites every tensor anyway
+        if torch_weights and not self.store.exists():
+            sd = weights_lib.load_torch_file(torch_weights)
+            family = weights_lib.torchvision_family(sd, model.name)
+            stats = weights_lib.port_torchvision(model.detector, sd, family)
+            print(f"ported {stats['merged']} tensors from {torch_weights} "
+                  f"({family}); reinitialised: "
+                  f"{stats['dropped_class_dependent'] or 'none'}")
         self.opt_config, self.base_lr = step_lib.make_optimizer(model.name)
         self.opt_state = init_opt_state(dict(model.named_parameters()),
                                         self.opt_config)

@@ -8,7 +8,7 @@ is `dgod_tpu_torch/csrc/<source>.cu` with every `old` text replaced by its
 `dgod_tpu_torch/_build/parts/`; `use` points the wrappers at one copy's
 library; `rounds` times every copy of a source on each named call, in
 turns over three rounds, with CUDA events queued behind a device sleep
-(`chip_smoke.cuda_time_ms`). Needs a CUDA device.
+(`dgod_tpu_torch.utils.timing.device_time_ms`). Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -23,20 +23,19 @@ sys.path.insert(0, str(ROOT))
 
 import torch  # noqa: E402
 
-import chip_smoke as cs  # noqa: E402
+# the split scripts build their inputs with chip_smoke's helpers
+import chip_smoke as cs  # noqa: E402,F401
 from dgod_tpu_torch.ops import _build  # noqa: E402
 from dgod_tpu_torch.ops import (cuda_matchers, cuda_nms,  # noqa: E402
                                 cuda_proposals, cuda_roi_align)
+from dgod_tpu_torch.utils import timing  # noqa: E402
 
 OUT_DIR = _build.BUILD_DIR / "parts"
 
 
 def card() -> None:
     """Print the card's name and power limit."""
-    print(subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip())
+    print(timing.card("cuda"))
 
 
 def build(variants, extra=None):
@@ -116,7 +115,8 @@ def rounds(source, names, calls, after_base=()):
                                zip(_as_list(fn()), _as_list(refs[label])))
                     print(f"{source} {name} on {label}: the same output as "
                           f"base: {same}")
-                times[name, label].append(cs.cuda_time_ms(fn, iters=20))
+                times[name, label].append(
+                    timing.device_time_ms(fn, "cuda", iters=20))
     use(source)
     for (name, label), t in times.items():
         print(f"{source} {name:14s} {label:10s} ms: "

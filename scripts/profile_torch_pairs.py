@@ -96,7 +96,7 @@ def main() -> int:
     if args.family == "FRCNN":
         with torch.no_grad():
             feats, _ = path.model.detector.features(
-                path.model.normalize(path.batch["image"]))
+                path.model.normalize(path.batches[0]["image"]))
         print("P2..P5 are contiguous NHWC views (no copy before K1): "
               f"{[bool(f.is_contiguous()) for f in feats[:4]]}")
         del feats

@@ -21,7 +21,7 @@ C=256, bf16 P2-P5 of 608x1216):
 - rois_1, rois_4, rois_8: 1, 4 or 8 RoIs per block in place of 2.
 
 K3, on chip_smoke.py's K3 check (319 valid gt over 8 images) and on a
-training batch (2-8 gt per image, chip_smoke.synthetic_batch):
+training batch (2-8 gt per image, utils.synthetic.synthetic_batch):
 - base;
 - pass1_only: the memset and pass 1 (pass 2 not launched);
 - pass2_only: pass 2 alone, on the scratch a base call left (the caching
@@ -56,6 +56,7 @@ import torch
 
 from _parts import ROOT, build, card, cs, rounds
 from dgod_tpu_torch.ops import cuda_matchers, cuda_roi_align
+from dgod_tpu_torch.utils.synthetic import synthetic_batch
 
 LOAD = "raw[k] = __ldg("
 STORE = "__stcs(reinterpret_cast<float4*>(dst + v * VEC + c),"
@@ -124,7 +125,7 @@ def main() -> int:
                             backbone_block_counts=(1, 1, 1, 1)
                             ).anchors.to(dev).contiguous()
     check = cs.k3_check_inputs(anchors)
-    batch = cs.synthetic_batch(np.random.RandomState(5), cs.B, cs.CANVAS, 3)
+    batch = synthetic_batch(np.random.RandomState(5), cs.B, cs.CANVAS, 3)
     train = (torch.from_numpy(batch["boxes"]).to(dev),
              torch.from_numpy(batch["gt_valid"]).to(dev))
     print(f"K3 inputs: valid gt per image, check "

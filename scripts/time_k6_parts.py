@@ -6,7 +6,7 @@ and time K4's layouts (the FCOS matcher, csrc/fcos_match.cu).
 
 Builds edited copies of the two sources under dgod_tpu_torch/_build/parts/
 (one nvcc each, all at once) and times each with CUDA events, queued
-behind a device sleep (chip_smoke.cuda_time_ms), in turns, three rounds
+behind a device sleep (utils.timing.device_time_ms), in turns, three rounds
 (scripts/_parts.py).
 With --parent, DIR is another checkout of the repository (a `git archive`
 of an earlier commit): its sources, as they are (K6's given the entry
@@ -38,7 +38,7 @@ rows three, disjoint, zeros and empty at K=9000, `chip_smoke.NMS_ROWS`):
   (never) or 64 boxes, in place of 16.
 
 K4, on chip_smoke.py's check and on a training batch (2-8 gt per image,
-chip_smoke.synthetic_batch):
+utils.synthetic.synthetic_batch):
 - base (blocks of 256 threads, one anchor each);
 - threads_128, threads_512: blocks of 128 or 512 threads.
 
@@ -58,6 +58,7 @@ import torch
 
 from _parts import ROOT, build, card, cs, rounds
 from dgod_tpu_torch.ops import cuda_matchers, cuda_nms
+from dgod_tpu_torch.utils.synthetic import synthetic_batch
 
 GATHER = ("    for (int i0 = 0; i0 < n; i0 += THREADS) {\n"
           "      const int i = i0 + tid;\n"
@@ -150,7 +151,7 @@ def main() -> int:
     anchors = torch.from_numpy(anchors_np).to(dev)
     gt, valid = cs.fcos_match_gt(np.random.RandomState(11), anchors_np,
                                  counts)
-    batch = cs.synthetic_batch(np.random.RandomState(5), cs.B, cs.CANVAS, 3)
+    batch = synthetic_batch(np.random.RandomState(5), cs.B, cs.CANVAS, 3)
     inputs = {"check": (gt, valid),
               "training": (batch["boxes"], batch["gt_valid"])}
     print(f"K4 inputs: valid gt per image, check {valid.sum(1).tolist()}, "

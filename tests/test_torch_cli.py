@@ -8,7 +8,10 @@
   training) reproduces the test mAP;
 - `--reference_quirks` reaches the FCOS loss config, the loader and the
   fused-pair switch, as tests/test_cli.py checks for JAX;
-- `--mesh`, `--torch_weights`, `--process_loader` raise.
+- `--torch_weights` warm-starts the CLI's model from a torchvision
+  checkpoint (a synthesised COCO FCOS `.pth`, full depth, as the JAX
+  tests/test_weights_e2e.py builds it);
+- `--mesh`, `--process_loader` raise.
 """
 
 import os
@@ -141,8 +144,58 @@ def test_cli_reference_quirks_flag(tmp_path, monkeypatch):
         assert captured["kw"]["device"] == torch.device("cpu")
 
 
+def test_cli_torch_weights_warm_start(tmp_path, monkeypatch):
+    """`--torch_weights X.pth` reaches the Trainer, which ports the file
+    into the model before any step; a `--max_epochs 0` run then tests the
+    warm-started weights. Full-depth FCOS (the checkpoint is a full
+    ResNet-50) at a 64x128 canvas, one intra-op thread."""
+    from test_weights_e2e import fcos_sd
+    from dgod_tpu_torch.utils import weights as W
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    for k, v in (("CANVAS", (64, 128)), ("TRAIN_SIZE", (60, 120)),
+                 ("MIN_SIZE", 60), ("MAX_SIZE", 120), ("MIN_AREA", 1.0)):
+        monkeypatch.setattr(T, k, v)
+    fcos = dg_fcos.DGFCOSModel
+    built = []
+
+    def small_fcos(**kw):
+        built.append(fcos(compute_dtype=torch.float32, **kw))
+        return built[-1]
+
+    monkeypatch.setattr(dg_fcos, "DGFCOSModel", small_fcos)
+    root = str(tmp_path)
+    write_domains(root, [("a", "train"), ("a", "val"), ("i", "val")], n=2)
+    sd = fcos_sd(np.random.RandomState(0), num_cls=91)
+    pth = os.path.join(root, "fcos_coco.pth")
+    torch.save({k: torch.from_numpy(np.atleast_1d(v)) for k, v in sd.items()},
+               pth)
+    argv = ["--model", "FCOS", "--exp", "non_dg", "--source_domains", "A",
+            "--target_domains", "I", "--eval_batch_size", "2",
+            "--data_root", root, "--weights_folder", os.path.join(root, "w"),
+            "--weights_file", "t", "--torch_weights", pth,
+            "--max_epochs", "0"]
+    try:
+        result = cli.main(argv, device="cpu")
+    finally:
+        torch.set_num_threads(threads)
+    assert 0.0 <= result["map_50"] <= 1.0
+    got = built[-1].state_dict()
+    want = fcos(num_classes=9, num_domains=1, canvas=(64, 128),
+                compute_dtype=torch.float32, device="cpu", seed=42)
+    init_logits = want.state_dict()["detector.head.cls_logits.weight"].clone()
+    stats = W.port_torchvision(want.detector, sd, "FCOS")
+    assert stats["dropped_class_dependent"] == ["head.cls_logits"]
+    for k, v in want.state_dict().items():
+        assert torch.equal(got[k], v), k
+    np.testing.assert_array_equal(
+        got["detector.backbone.body.conv1.weight"].numpy(),
+        sd["backbone.body.conv1.weight"])
+    assert torch.equal(got["detector.head.cls_logits.weight"], init_logits)
+
+
 @pytest.mark.parametrize("flag", [["--mesh", "data=2"],
-                                  ["--torch_weights", "x.pth"],
                                   ["--process_loader"]])
 def test_flags_not_in_the_port_raise(flag):
     with pytest.raises(NotImplementedError, match="ROADMAP Queue A"):

@@ -5,8 +5,10 @@
   has JAX loaded by tests/conftest.py);
 - `dgod_tpu_torch.cli` imports with pandas, cv2 and jax absent, as on the
   machine with the card (a subprocess that blocks them);
-- no file of the port, chip_smoke.py or train_driving_dg_torch.py imports
-  jax, flax or dgod_tpu (AST scan);
+- no file of the port, chip_smoke.py, train_driving_dg_torch.py,
+  bench_torch.py, scripts/check_convergence_torch.py or
+  scripts/compare_card_cpu_training.py imports jax, flax or dgod_tpu (AST
+  scan);
 - an entry point called without `device` on a host without CUDA raises
   instead of running on the CPU;
 - chip_smoke.py exits non-zero and prints no result without a card, and
@@ -50,7 +52,8 @@ def test_import_leaves_jax_and_dgod_tpu_out():
     mods = _submodules()
     for m in ("ops.cuda_roi_align", "ops.cuda_matchers", "ops.cuda_nms",
               "ops.cuda_proposals", "ops.proposals", "models.fcos",
-              "models.dg_fcos", "utils.weights", "utils.logging", "cli",
+              "models.dg_fcos", "utils.weights", "utils.logging",
+              "utils.flops", "utils.timing", "utils.synthetic", "cli",
               "eval.coco_map", "data.dataset", "data.png", "data.native",
               "data.transforms", "data.loader", "train.harness",
               "train.checkpoint"):
@@ -96,9 +99,11 @@ def _imported_roots(path: Path):
 
 
 @pytest.mark.parametrize("path", sorted(
-    str(p.relative_to(REPO)) for p in [*PKG.rglob("*.py"),
-                                       REPO / "chip_smoke.py",
-                                       REPO / "train_driving_dg_torch.py"]))
+    str(p.relative_to(REPO)) for p in [
+        *PKG.rglob("*.py"), REPO / "chip_smoke.py",
+        REPO / "train_driving_dg_torch.py", REPO / "bench_torch.py",
+        REPO / "scripts" / "check_convergence_torch.py",
+        REPO / "scripts" / "compare_card_cpu_training.py"]))
 def test_no_file_of_the_port_imports_jax(path):
     roots = set(_imported_roots(REPO / path))
     assert not roots & set(FORBIDDEN), (path, sorted(roots & set(FORBIDDEN)))
