@@ -64,14 +64,26 @@ Phases, each of which fails the run (non-zero exit) on any fault:
    FrozenBatchNorm at identity), to train mAP@0.5 >= 0.6: FCOS at the CPU
    learning test's size within 60 epochs, FRCNN (600-step LR warm-up) at
    300x600 within 100 epochs (`learn_size` says why); counts from 0
-   around each.
+   around each;
+11. multi-GPU training (`--mesh`), run before phase 8: a one-rank NCCL
+   group (a file store in a temporary directory) and, per family, the
+   full-width model (calibrated init of seed 0, 4 batches of 8) through
+   `Trainer` twice without a mesh and once with `mesh=auto`, under
+   deterministic cuDNN and deterministic algorithms: one DG cycle of the
+   four fused pairs, then a validation over 2 batches, counts from 0
+   around each. Two plain cycles must be bit-identical, and so must the
+   mesh cycle (parameters and optimizer state), with the same val mAP;
+   the mesh cycle must launch the kernels of 4 pairs and 2 predicts. With
+   more than one card, scripts/check_multigpu_torch.py then runs over them
+   (DP and TP against one-card cycles of the same arithmetic, images/s per
+   rank count); with one, that part is reported as not run.
 
 Each family's main path also reports its second DG cycle's images/s and
 MFU (`utils.flops.train_mfu`, against the H100 SXM's dense bf16 peak).
 
 Output: one line per phase, then the card's name and power limit, then one
 JSON line {"kernels": [...]} (times, errors, bounds, and the launches of
-the two main paths, phases 4-7; phases 8-10 print theirs on lines of
+the two main paths, phases 4-7; phases 8-11 print theirs on lines of
 their own), and last
 {"ok": true, "device": {...}}. Without a CUDA device, or without the
 package beside it, the script exits non-zero and prints no result.
@@ -1387,6 +1399,150 @@ def run_learn_phase(dev, family: str, root: str):
     return counts
 
 
+MESH_VAL_BATCHES = 2
+
+
+def mesh_cycle(dev, model, init, host, mesh, root):
+    """One DG cycle (the four fused pairs, one host batch each) and a
+    validation over MESH_VAL_BATCHES of them, through `Trainer` from
+    `init`, with or without `mesh`; counts from 0 around them. -> the
+    parameters, optimizer state, val mAP, each pair's host-clock ms and
+    the launches."""
+    from dgod_tpu_torch.train.harness import Trainer
+    from dgod_tpu_torch.utils.synthetic import HostBatches
+    from dgod_tpu_torch.utils.timing import host_ms
+
+    model.load_state_dict(init)
+    t = Trainer(model, HostBatches(host, dg=True),
+                HostBatches(host[:MESH_VAL_BATCHES]), dg=True, seed=0,
+                log_every=10 ** 9, device=dev, mesh=mesh,
+                ckpt_path=os.path.join(root, "mesh.ckpt"))
+    pair_ms = []
+    for k, step in t.pair_steps.items():
+        def timed(*a, _step=step):
+            out, ms = host_ms(lambda: _step(*a), dev)
+            pair_ms.append(ms)
+            return out
+        t.pair_steps[k] = timed
+    torch.cuda.synchronize()
+    reset_counts()  # this path starts here
+    t.train_epoch()
+    val_map = t.validate()["map_50"]
+    counts = read_counts()  # and ends here
+    state = {n: p.detach().clone() for n, p in model.named_parameters()}
+    opt = [v.clone() for k in ("mu", "nu")
+           for v in t.opt_state.get(k, {}).values()]
+    return state, opt, val_map, pair_ms, counts
+
+
+def tensors_diff(a, b) -> float:
+    """Largest |a - b| over two lists/dicts of tensors (0.0: equal bit for
+    bit, -0.0 against 0.0 aside)."""
+    vals = a.values() if isinstance(a, dict) else a
+    others = b.values() if isinstance(b, dict) else b
+    return max(float((x - y).abs().max()) for x, y in zip(vals, others))
+
+
+def bit_identical(a, b) -> bool:
+    vals = a.values() if isinstance(a, dict) else a
+    others = b.values() if isinstance(b, dict) else b
+    return all(torch.equal(x, y) for x, y in zip(vals, others))
+
+
+def run_mesh_family(dev, family: str, root: str):
+    """The mesh phase of one family: its full-width model (calibrated
+    init of seed 0, 4 synthetic batches of B) through `Trainer` twice
+    without a mesh and once with the one-rank mesh, all three bit for
+    bit alike."""
+    import torch.distributed as dist
+
+    from dgod_tpu_torch.parallel import mesh as mesh_lib
+    from dgod_tpu_torch.utils.synthetic import synthetic_model
+
+    model, host = synthetic_model(family, dev, canvas=CANVAS, batch=B,
+                                  n_batches=4)
+    init = {k: v.clone() for k, v in model.state_dict().items()}
+    plain = [mesh_cycle(dev, model, init, host, None, root)
+             for _ in range(2)]
+    one_rank = mesh_lib.parse_mesh_spec("auto")
+    for group in (one_rank.data_group, one_rank.model_group):
+        # NCCL makes a communicator at its first call: not in a pair's time
+        dist.all_reduce(torch.zeros(1, device=dev), group=group)
+    mesh = mesh_cycle(dev, model, init, host, one_rank, root)
+    want = dict.fromkeys(read_counts(), 0)
+    for k in (1, 2, 3, 4):
+        for kid, n in expected_launches(family, k).items():
+            want[kid] += n
+    for kid, n in expected_launches(family).items():
+        want[kid] += MESH_VAL_BATCHES * n
+    (a, a_opt, a_map, a_ms, _), (b, b_opt, b_map, b_ms, _) = plain
+    m, m_opt, m_map, m_ms, m_counts = mesh
+    plain_same = bit_identical(a, b) and bit_identical(a_opt, b_opt)
+    mesh_same = bit_identical(m, a) and bit_identical(m_opt, a_opt)
+    print(f"mesh {family}: one-rank NCCL DG cycle vs the plain Trainer "
+          f"from the same init and batches (parameters and optimizer "
+          f"state): plain-vs-plain "
+          f"{'bit-identical' if plain_same else 'DIFFERENT'}, mesh-vs-plain "
+          f"{'bit-identical' if mesh_same else 'DIFFERENT'}; val mAP plain "
+          f"{a_map!r} / {b_map!r}, mesh {m_map!r}; pair ms plain "
+          f"{[round(x, 1) for x in a_ms]} / {[round(x, 1) for x in b_ms]}, "
+          f"mesh {[round(x, 1) for x in m_ms]}")
+    print(f"mesh {family} launches: {m_counts}")
+    if not plain_same:
+        fail(f"mesh {family}: two plain cycles differ under deterministic "
+             f"settings (max diff {tensors_diff(a, b):.3e})")
+    if not mesh_same:
+        fail(f"mesh {family}: the one-rank mesh cycle is not bit-identical "
+             f"to the plain cycle (max diff {tensors_diff(m, a):.3e})")
+    if not (m_map == a_map == b_map):
+        fail(f"mesh {family}: val mAP {m_map} != the plain {a_map}, {b_map}")
+    if m_counts != want:
+        fail(f"mesh {family}: kernel launches {m_counts}, expected {want}")
+    return m_counts
+
+
+def run_mesh_phase(dev, root: str):
+    """Multi-GPU training on this card: a one-rank NCCL group (a file
+    store in `root`), each family through `Trainer(mesh=auto)` against
+    the plain Trainer under deterministic cuDNN; then, with more than one
+    card, scripts/check_multigpu_torch.py over all of them."""
+    import subprocess
+
+    import torch.distributed as dist
+
+    from dgod_tpu_torch.parallel import multihost
+
+    saved = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark,
+             torch.are_deterministic_algorithms_enabled())
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    multihost.initialize(
+        coordinator_address="file://" + os.path.join(root, "nccl_store"),
+        num_processes=1, process_id=0)
+    try:
+        nccl = ".".join(map(str, torch.cuda.nccl.version()))
+        print(f"mesh: one-rank group, backend {dist.get_backend()}, nccl "
+              f"{nccl}, cudnn.deterministic True, benchmark False")
+        for family in ("FRCNN", "FCOS"):
+            run_mesh_family(dev, family, root)
+    finally:
+        dist.destroy_process_group()
+        torch.backends.cudnn.deterministic = saved[0]
+        torch.backends.cudnn.benchmark = saved[1]
+        torch.use_deterministic_algorithms(saved[2])
+    n = torch.cuda.device_count()
+    if n < 2:
+        print("mesh: 1 card; the multi-card part (DP and TP over every "
+              "card, scripts/check_multigpu_torch.py) was not run")
+        return
+    script = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "scripts", "check_multigpu_torch.py")
+    subprocess.run([sys.executable, script, "--ranks", str(n - n % 2)],
+                   check=True, timeout=900)
+
+
 CLI_IMAGE = (600, 1200)
 CLI_SPLITS = {("a", "train"): 16, ("b", "train"): 16, ("c", "train"): 16,
               ("a", "val"): 8, ("b", "val"): 8, ("c", "val"): 8,
@@ -1562,6 +1718,9 @@ def main() -> int:
               file=sys.stderr)
         return 1
     dev = torch.device("cuda")
+    # cuBLAS's deterministic workspace (the Hopper default size), read at
+    # its first use: the mesh phase runs with deterministic algorithms
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
     # 1. the card
     from dgod_tpu_torch.utils.timing import card
@@ -1610,6 +1769,9 @@ def main() -> int:
             fail(f"{kid} was not launched on the main paths")
     print(f"main paths' launches (the kernels line): {counts}")
     with tempfile.TemporaryDirectory() as root:
+        t = time.perf_counter()
+        run_mesh_phase(dev, root)
+        print(f"mesh phase: {time.perf_counter() - t:.1f} s")
         t = time.perf_counter()
         write_cli_dataset(root)
         print(f"CLI dataset: {sum(CLI_SPLITS.values())} PNGs of "

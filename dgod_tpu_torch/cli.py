@@ -11,9 +11,14 @@ sequential domain indices in that order. Everything is seeded to 42
 
 `main` runs on the card; the CPU is reached only through its `device`
 keyword (tests). `--torch_weights` warm-starts from a torchvision
-checkpoint when no `.ckpt` exists. `--mesh` and `--process_loader` are
-parsed as in the JAX package and raise NotImplementedError when set: the
-port has them in ROADMAP Queue A.
+checkpoint when no `.ckpt` exists. `--mesh` trains on a data x model mesh
+of ranks, one process per card (parallel/), launched as
+
+  torchrun --nproc_per_node 4 train_driving_dg_torch.py --mesh auto ...
+
+with `--batch_size` the batch each node loads, split over its ranks.
+`--process_loader` is parsed as in the JAX package and raises
+NotImplementedError when set: the port has it in ROADMAP Queue A.
 """
 
 from __future__ import annotations
@@ -42,7 +47,6 @@ DOMAIN_SPECS = {
 
 # flags the port parses but does not run yet, and where they stand
 NOT_PORTED = {
-    "mesh": "Queue A 12 (multi-GPU)",
     "process_loader": "Queue A 14 (ProcessTrainLoader)",
 }
 
@@ -101,8 +105,10 @@ def parser_args(argv=None):
                              "151), which also disables the fused pair-step "
                              "optimisation")
     parser.add_argument("--mesh", type=str, default=None,
-                        help="multi-device training (not in the port yet: "
-                             "ROADMAP " + NOT_PORTED["mesh"] + ")")
+                        help="multi-GPU training over all the ranks of a "
+                             "torchrun launch: 'auto' (data parallel), "
+                             "'data=N', 'data=N,model=M' or 'model=M' "
+                             "(the head layers split over M ranks)")
     parser.add_argument("--process_loader", action="store_true",
                         help="run the train loader in a child process (not "
                              "in the port yet: ROADMAP "
@@ -146,6 +152,13 @@ def main(argv=None, device=None):
         if getattr(args, flag):
             raise NotImplementedError(
                 f"--{flag} is not in dgod_tpu_torch yet (ROADMAP {item})")
+    mesh = None
+    if args.mesh:
+        from .parallel import mesh as mesh_lib, multihost
+
+        # joins the process group before anything touches the card
+        multihost.initialize(device=device)
+        mesh = mesh_lib.parse_mesh_spec(args.mesh)
     dev = resolve_device(device)
     SEED = 42
     np.random.seed(SEED)
@@ -157,6 +170,24 @@ def main(argv=None, device=None):
     tr_dataset, tr_datasets, vl_dataset, test_dataset = datasets_from_arguments(
         source, target, args.data_root, args.decode_cache_gb)
     num_domains = len(tr_datasets)
+
+    # multi-node input sharding: each node loads only its slice. Train
+    # slices must be equal-sized (unequal per-node batch counts would leave
+    # ranks waiting in a collective) -> even split; eval keeps every image
+    # (ceil split) and equalises batch counts with dummy padded batches.
+    pad_batches = {}
+    if mesh is not None and multihost.node_count() > 1:
+        from .data.dataset import Subset
+
+        tr_dataset = Subset(
+            tr_dataset, *multihost.host_shard_range(len(tr_dataset), True))
+        for key, ds in (("val", vl_dataset), ("test", test_dataset)):
+            per = -(-len(ds) // multihost.node_count())  # ceil
+            pad_batches[key] = -(-per // args.eval_batch_size)
+        vl_dataset = Subset(vl_dataset,
+                            *multihost.host_shard_range(len(vl_dataset)))
+        test_dataset = Subset(test_dataset,
+                              *multihost.host_shard_range(len(test_dataset)))
 
     # the model canvas must match the data pipeline's padded canvas: bind
     # it to the single source of truth instead of a second default
@@ -187,8 +218,10 @@ def main(argv=None, device=None):
     dg = args.exp == "dg"
     train_loader = TrainLoader(tr_dataset, args.batch_size, dg, seed=SEED,
                                resample_replay=args.reference_quirks)
-    val_loader = EvalLoader(vl_dataset, args.eval_batch_size, val_resize)
-    test_loader = EvalLoader(test_dataset, args.eval_batch_size, val_resize)
+    val_loader = EvalLoader(vl_dataset, args.eval_batch_size, val_resize,
+                            pad_to_batches=pad_batches.get("val"))
+    test_loader = EvalLoader(test_dataset, args.eval_batch_size, val_resize,
+                             pad_to_batches=pad_batches.get("test"))
 
     ckpt = os.path.join(args.weights_folder, args.weights_file + ".ckpt")
     trainer = Trainer(
@@ -202,6 +235,7 @@ def main(argv=None, device=None):
         fused_pairs=not args.reference_quirks,
         torch_weights=args.torch_weights,
         device=dev,
+        mesh=mesh,
     )
     trainer.fit()
     return trainer.test(test_loader)

@@ -2,6 +2,12 @@
 the copy of batches to the card (the port's own copy of
 dgod_tpu/data/loader.py, less ProcessTrainLoader).
 
+A loader may be given a row block (`rows=(start, stop)`): it then yields
+only those rows of every batch. It keeps the order and the per-image
+augmentation seeds of the whole batch, so the row blocks of the ranks of a
+mesh (parallel/mesh.py::Mesh.row_block) put together are the one-device
+batch, bit for bit, and no rank decodes an image it does not use.
+
 Parity: the reference's custom train_dataloader (DGcommon.py:139-151)
 shuffles indices, chunks them into batches, and in 'dg' mode emits every
 batch twice consecutively so the mode-0 and mode-k steps of the 5-mode
@@ -107,9 +113,11 @@ class TrainLoader:
         num_workers: int = 8,
         max_gt: int = T.MAX_GT,
         resample_replay: bool = False,
+        rows: Optional[tuple] = None,
     ):
         self.dataset = dataset
         self.batch_size = batch_size
+        self.rows = rows
         # reference-exact replay: the reference re-runs __getitem__ for the
         # dg duplicate batch, RE-SAMPLING the random flip (DGcommon.py:139-151
         # guarantees same images, not same pixels). Default (False) replays
@@ -147,8 +155,9 @@ class TrainLoader:
                     else bi
                 seeds = [int(self.rng_epoch_base + pair * 131071 + j)
                          for j in range(len(batch))]
+                lo, hi = self.rows or (0, len(batch))
                 pending.put([pool.submit(self._load_one, idx, s)
-                             for idx, s in zip(batch, seeds)])
+                             for idx, s in zip(batch[lo:hi], seeds[lo:hi])])
 
             self.rng_epoch_base = int(self.rng.randint(0, 2**31 - 1))
             prefetch = 3
@@ -178,9 +187,11 @@ class EvalLoader:
         num_workers: int = 8,
         max_gt: int = T.MAX_GT,
         pad_to_batches: Optional[int] = None,
+        rows: Optional[tuple] = None,
     ):
         self.dataset = dataset
         self.batch_size = batch_size
+        self.rows = rows
         self.resize = resize_to_train_size
         self.num_workers = num_workers
         self.max_gt = max_gt
@@ -204,37 +215,46 @@ class EvalLoader:
         # bounded in-flight window: decoded canvases are ~MBs each, so
         # submitting the whole dataset up front would accumulate unbounded
         # host memory whenever eval is slower than decode
-        n = len(self.dataset)
-        window = max(2 * self.num_workers, 4 * self.batch_size)
+        n, b = len(self.dataset), self.batch_size
+        start, stop = self.rows or (0, b)
+        window = max(2 * self.num_workers, 4 * b)
+
+        def block(k):
+            """Batch k's dataset indices in this loader's rows, the tail
+            batch padded by repeating its last image, and the rows' count
+            of real images where the batch is the tail (else None)."""
+            first = k * b
+            idx = [min(first + j, n - 1) for j in range(start, stop)]
+            real = min(max(n - first - start, 0), stop - start)
+            return idx, (real if n - first < b else None)
+
         with ThreadPoolExecutor(self.num_workers) as pool:
-            inflight = collections.deque()
-            next_idx = 0
+            pending = collections.deque()
+            in_flight = 0
+            next_k = 0
 
             def fill():
-                nonlocal next_idx
-                while next_idx < n and len(inflight) < window:
-                    inflight.append(pool.submit(self._load_one, next_idx))
-                    next_idx += 1
+                nonlocal in_flight, next_k
+                while next_k * b < n and (not pending or in_flight < window):
+                    idx, real = block(next_k)
+                    futures = {i: pool.submit(self._load_one, i)
+                               for i in dict.fromkeys(idx)}
+                    pending.append((futures, idx, real))
+                    in_flight += len(futures)
+                    next_k += 1
 
             fill()
-            group = []
             emitted = 0
             last = None
-            while inflight:
-                group.append(inflight.popleft().result())
+            while pending:
+                futures, idx, real = pending.popleft()
+                in_flight -= len(futures)
+                examples = {i: f.result() for i, f in futures.items()}
                 fill()
-                if len(group) == self.batch_size:
-                    last = T.stack_examples(group)
-                    yield last
-                    emitted += 1
-                    group = []
-            if group:
-                # pad the tail batch by repeating the last example; the
-                # caller masks via the 'num_real' count
-                rem = len(group)
-                last = T.stack_examples(
-                    group + [group[-1]] * (self.batch_size - rem))
-                last["num_real"] = rem
+                # the caller masks a tail batch's padding via 'num_real'
+                last = T.stack_examples([examples[i] for i in idx])
+                if real is not None:
+                    last["num_real"] = real
                 yield last
                 emitted += 1
             if self.pad_to_batches is not None and last is not None:

@@ -92,15 +92,22 @@ class DGFCOSModel(nn.Module):
     def forward(self, images_uint8: torch.Tensor):
         return self.detector(self.normalize(images_uint8))
 
-    def pair_targets(self, batch) -> Dict[str, torch.Tensor]:
+    def pair_targets(self, batch, batch_sum=None) -> Dict[str, torch.Tensor]:
         """What both halves of a fused pair step take from `batch` alone:
         the matcher's raw codes (modes 0 and 2-4 match the same gt against
         the same anchors, and the match reads no parameter), passed to
-        `loss_for_mode` as `matched`."""
+        `loss_for_mode` as `matched`. With `batch_sum` (a function that
+        sums a count over the ranks whose rows make up the global batch)
+        also the global batch's foreground count, `fg_count`, mode 0's
+        denominator."""
         det = self.detector
-        return {"matched": fcos_match_codes(det.anchors, det.anchor_counts,
-                                            batch["boxes"], batch["gt_valid"],
-                                            self.loss_config)}
+        matched = fcos_match_codes(det.anchors, det.anchor_counts,
+                                   batch["boxes"], batch["gt_valid"],
+                                   self.loss_config)
+        if batch_sum is None:
+            return {"matched": matched}
+        return {"matched": matched,
+                "fg_count": batch_sum((matched >= 0).sum())}
 
     def _gt_classes(self, batch, matched=None) -> torch.Tensor:
         """Dense one-hot matcher targets [B, R, C]."""
@@ -113,17 +120,19 @@ class DGFCOSModel(nn.Module):
     # -- per-mode losses ---------------------------------------------------
 
     def loss_for_mode(self, batch, draws, mode: int, reg_weights,
-                      matched=None):
+                      matched=None, fg_count=None):
         """-> (total loss, metrics dict of detached scalars). `draws` is
         unused (see `make_draws`); `matched`, the raw matcher codes of
-        `pair_targets`, is computed here where it is not given."""
+        `pair_targets`, is computed here where it is not given; `fg_count`
+        (`pair_targets`' global count) replaces the batch's own in mode
+        0."""
         if mode == 0:
             outputs, _ = self(batch["image"])
             det = self.detector
             losses, _ = fcos_loss(outputs, det.anchors, det.anchor_counts,
                                   batch["boxes"], batch["labels"],
                                   batch["gt_valid"], self.loss_config,
-                                  matched)
+                                  matched, fg_count)
             total = (losses["classification"] + losses["bbox_regression"]
                      + losses["bbox_ctrness"])
             return total, {f"det/{k}": v.detach() for k, v in losses.items()}

@@ -99,9 +99,10 @@ class DGFRCNNModel(nn.Module):
         rpn = (uniform(R), uniform(R)) if with_rpn else (None, None)
         return Draws(*rpn, uniform(n_prop + num_gt), uniform(n_prop + num_gt))
 
-    def pair_targets(self, batch) -> Dict[str, torch.Tensor]:
+    def pair_targets(self, batch, batch_sum=None) -> Dict[str, torch.Tensor]:
         """Nothing that both halves of a fused pair step share: mode 0's
-        RPN match is its own (see DGFCOSModel.pair_targets)."""
+        RPN match is its own (see DGFCOSModel.pair_targets), and no loss
+        divides by a count over the batch, so `batch_sum` goes unused."""
         return {}
 
     # -- forward -----------------------------------------------------------

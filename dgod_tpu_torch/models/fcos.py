@@ -166,11 +166,15 @@ def fcos_match_codes(anchors: torch.Tensor, num_anchors_per_level: tuple,
 def fcos_loss(outputs: Dict[str, torch.Tensor], anchors: torch.Tensor,
               num_anchors_per_level: tuple, gt_boxes: torch.Tensor,
               gt_labels: torch.Tensor, gt_valid: torch.Tensor,
-              config: FCOSLossConfig = FCOSLossConfig(), matched=None):
+              config: FCOSLossConfig = FCOSLossConfig(), matched=None,
+              fg_count=None):
     """Batched FCOS loss -> (loss dict, dense one-hot gt_classes [B,R,C]).
     Each loss is summed over the batch and divided by the batch's number of
     foreground locations (at least 1). `matched`: the raw codes of
-    `fcos_match_codes` on these gt, where the caller has them."""
+    `fcos_match_codes` on these gt, where the caller has them; `fg_count`:
+    the foreground count to divide by in place of this batch's own (the
+    count over the data group when this batch is one rank's rows of a
+    global batch)."""
     cls_logits = outputs["cls_logits"]
     bbox_regression = outputs["bbox_regression"]
     bbox_ctrness = outputs["bbox_ctrness"]
@@ -195,7 +199,8 @@ def fcos_loss(outputs: Dict[str, torch.Tensor], anchors: torch.Tensor,
                              _gather_rows(gt_boxes.float(), safe))
     labels_t = torch.where(use_zero[:, None], 0,
                            torch.gather(gt_labels.long(), 1, safe))
-    denom = fg.float().sum().clamp(min=1.0)
+    denom = (fg.float().sum() if fg_count is None
+             else fg_count.float()).clamp(min=1.0)
 
     gt_classes = (one_hot(labels_t, C, cls_logits.dtype)
                   * fg[..., None].to(cls_logits.dtype))

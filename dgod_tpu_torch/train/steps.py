@@ -65,19 +65,35 @@ def stop_inactive_grads(model: torch.nn.Module, active: Dict[str, bool]):
 
 
 def _half(model, opt_state, batch, draws, lr, mode, active, reg_weights,
-          opt_config, targets=None):
+          opt_config, targets=None, reduce=None):
+    """One step half: the mode's loss, its gradients, the update.
+    `reduce(grads, metrics, params) -> (grads, metrics)`, where given, runs
+    between the backward and the update (the data-parallel all-reduce,
+    parallel/spmd.py)."""
     stop_inactive_grads(model, active)
     total, metrics = model.loss_for_mode(batch, draws, mode, reg_weights,
                                          **(targets or {}))
     params = dict(model.named_parameters())
     names = [n for n, a in active.items() if a]
-    grads = torch.autograd.grad(total, [params[n] for n in names],
-                                allow_unused=True)
-    opt_state = apply_updates(params, dict(zip(names, grads)), opt_state,
-                              active, lr, opt_config)
+    grads = dict(zip(names, torch.autograd.grad(
+        total, [params[n] for n in names], allow_unused=True)))
     metrics = dict(metrics)
     metrics["loss"] = total.detach()
+    if reduce is not None:
+        grads, metrics = reduce(grads, metrics, params)
+    opt_state = apply_updates(params, grads, opt_state, active, lr,
+                              opt_config)
     return opt_state, metrics
+
+
+def pair_metrics(m0, mk, mode_k: int):
+    """The metrics of a fused pair: both halves' under 'm0/' and
+    'm{k}/', with 'loss' mode k's total and 'loss0' mode 0's."""
+    metrics = {f"m0/{k}": v for k, v in m0.items()}
+    metrics.update({f"m{mode_k}/{k}": v for k, v in mk.items()})
+    metrics["loss"] = mk["loss"]
+    metrics["loss0"] = m0["loss"]
+    return metrics
 
 
 def make_train_step(model, mode: int, reg_weights: Sequence[float],
@@ -117,11 +133,7 @@ def make_pair_step(model, mode_k: int, reg_weights: Sequence[float],
         opt_state, mk = _half(model, opt_state, batch, draws1, lr, mode_k,
                               active_by_mode[mode_k], reg_weights, opt_config,
                               targets)
-        metrics = {f"m0/{k}": v for k, v in m0.items()}
-        metrics.update({f"m{mode_k}/{k}": v for k, v in mk.items()})
-        metrics["loss"] = mk["loss"]
-        metrics["loss0"] = m0["loss"]
-        return opt_state, metrics
+        return opt_state, pair_metrics(m0, mk, mode_k)
 
     return step
 

@@ -66,24 +66,16 @@ PAIRS = (1, 2, 3, 4)
 REG_WEIGHTS = (0.5, 0.5, 0.5, 0.05, 1e-4)
 
 
-def build_dg_cycle(family: str, device, *, canvas=(608, 1216), batch=8,
-                   num_domains=3, block_counts=(3, 4, 6, 3),
-                   compute_dtype=torch.bfloat16, config=None, n_batches=1,
-                   seed=0, data_seed=5):
-    """A DG training cycle from random weights, as the harness runs it:
-    the family's model (drawn from `seed`), `n_batches` synthetic batches
-    on `device` (from `RandomState(data_seed)`; pairs take them in turn),
-    FrozenBatchNorm calibrated from the first, the optimizer state, the
-    fused pair steps (0,k) in the DG schedule's order and the eval step.
-    `config` is an FRCNNConfig (FRCNN only). Run it with `run_dg_cycle`;
-    a cycle holds `images` images, each pair counting its batch twice as
-    `Trainer.train_epoch` does."""
-    import types
-
+def synthetic_model(family: str, device, *, canvas=(608, 1216), batch=8,
+                    num_domains=3, block_counts=(3, 4, 6, 3),
+                    compute_dtype=torch.bfloat16, config=None, n_batches=1,
+                    seed=0, data_seed=5):
+    """The family's model from random weights (drawn from `seed`) and
+    `n_batches` synthetic host batches (numpy, from
+    `RandomState(data_seed)`), FrozenBatchNorm calibrated from the first.
+    `config` is an FRCNNConfig (FRCNN only). -> (model, batches)."""
     from ..models.dg_fcos import DGFCOSModel
-    from ..models.dg_frcnn import DGFRCNNModel, batch_to_torch
-    from ..train import steps as S
-    from ..train.optim import init_opt_state
+    from ..models.dg_frcnn import DGFRCNNModel
 
     kw = {"config": config} if config is not None else {}
     cls = {"FRCNN": DGFRCNNModel, "FCOS": DGFCOSModel}[family]
@@ -92,10 +84,48 @@ def build_dg_cycle(family: str, device, *, canvas=(608, 1216), batch=8,
                 backbone_block_counts=block_counts, device=device, seed=seed,
                 **kw)
     rng = np.random.RandomState(data_seed)
-    batches = [batch_to_torch(synthetic_batch(rng, batch, canvas,
-                                              num_domains), device)
+    batches = [synthetic_batch(rng, batch, canvas, num_domains)
                for _ in range(n_batches)]
-    calibrate_frozen_bn(model, batches[0]["image"])
+    calibrate_frozen_bn(model, torch.from_numpy(batches[0]["image"]).to(
+        model.device))
+    return model, batches
+
+
+class HostBatches:
+    """Host batches as a loader of the harness: `epoch()` yields each once
+    (a train loader), and so does iterating (an eval loader); `rows`, set
+    by a mesh Trainer, keeps a row block of each, as the port's loaders
+    do."""
+
+    def __init__(self, batches, dg: bool = False):
+        self.batches, self.dg, self.rows = batches, dg, None
+        self.batch_size = len(batches[0]["image"])
+
+    def epoch(self):
+        lo, hi = self.rows or (0, self.batch_size)
+        for b in self.batches:
+            yield {k: v[lo:hi] for k, v in b.items()}
+
+    def __iter__(self):
+        return self.epoch()
+
+
+def build_dg_cycle(family: str, device, *, batch=8, n_batches=1, **kw):
+    """A DG training cycle from random weights, as the harness runs it:
+    `synthetic_model`'s model and batches (on `device`; pairs take them in
+    turn), the optimizer state, the fused pair steps (0,k) in the DG
+    schedule's order and the eval step. Run it with `run_dg_cycle`; a
+    cycle holds `images` images, each pair counting its batch twice as
+    `Trainer.train_epoch` does."""
+    import types
+
+    from ..models.dg_frcnn import batch_to_torch
+    from ..train import steps as S
+    from ..train.optim import init_opt_state
+
+    model, host = synthetic_model(family, device, batch=batch,
+                                  n_batches=n_batches, **kw)
+    batches = [batch_to_torch(b, device) for b in host]
     scheduler = S.ModeScheduler(dg=True)
     pairs = []
     for _ in PAIRS:

@@ -11,7 +11,9 @@
 - `--torch_weights` warm-starts the CLI's model from a torchvision
   checkpoint (a synthesised COCO FCOS `.pth`, full depth, as the JAX
   tests/test_weights_e2e.py builds it);
-- `--mesh`, `--process_loader` raise.
+- `--process_loader` raises (not in the port yet), and `--mesh data=3`
+  on a one-rank world raises that it needs 3 devices (a mesh must hold
+  every rank; tests/test_torch_parallel.py runs `--mesh` on 2 ranks).
 """
 
 import os
@@ -195,8 +197,10 @@ def test_cli_torch_weights_warm_start(tmp_path, monkeypatch):
     assert torch.equal(got["detector.head.cls_logits.weight"], init_logits)
 
 
-@pytest.mark.parametrize("flag", [["--mesh", "data=2"],
-                                  ["--process_loader"]])
-def test_flags_not_in_the_port_raise(flag):
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A"):
+@pytest.mark.parametrize("flag,error,match", [
+    (["--mesh", "data=3"], ValueError, "needs 3 devices"),
+    (["--process_loader"], NotImplementedError, "ROADMAP Queue A")],
+    ids=["flag0", "flag1"])  # the cases' ids before --mesh was ported
+def test_flags_not_in_the_port_raise(flag, error, match):
+    with pytest.raises(error, match=match):
         cli.main(flag, device="cpu")

@@ -6,9 +6,10 @@
 - `dgod_tpu_torch.cli` imports with pandas, cv2 and jax absent, as on the
   machine with the card (a subprocess that blocks them);
 - no file of the port, chip_smoke.py, train_driving_dg_torch.py,
-  bench_torch.py, scripts/check_convergence_torch.py or
-  scripts/compare_card_cpu_training.py imports jax, flax or dgod_tpu (AST
-  scan);
+  bench_torch.py, scripts/check_convergence_torch.py,
+  scripts/compare_card_cpu_training.py, scripts/check_multigpu_torch.py,
+  scripts/rank_launch.py or tests/_torch_ranks.py (what the gloo ranks of
+  the multi-GPU tests run) imports jax, flax or dgod_tpu (AST scan);
 - an entry point called without `device` on a host without CUDA raises
   instead of running on the CPU;
 - chip_smoke.py exits non-zero and prints no result without a card, and
@@ -56,7 +57,8 @@ def test_import_leaves_jax_and_dgod_tpu_out():
               "utils.flops", "utils.timing", "utils.synthetic", "cli",
               "eval.coco_map", "data.dataset", "data.png", "data.native",
               "data.transforms", "data.loader", "train.harness",
-              "train.checkpoint"):
+              "train.checkpoint", "parallel.multihost", "parallel.mesh",
+              "parallel.spmd", "parallel.tensor_parallel"):
         assert f"dgod_tpu_torch.{m}" in mods
     code = (
         "import importlib, json, sys\n"
@@ -103,7 +105,10 @@ def _imported_roots(path: Path):
         *PKG.rglob("*.py"), REPO / "chip_smoke.py",
         REPO / "train_driving_dg_torch.py", REPO / "bench_torch.py",
         REPO / "scripts" / "check_convergence_torch.py",
-        REPO / "scripts" / "compare_card_cpu_training.py"]))
+        REPO / "scripts" / "compare_card_cpu_training.py",
+        REPO / "scripts" / "check_multigpu_torch.py",
+        REPO / "scripts" / "rank_launch.py",
+        REPO / "tests" / "_torch_ranks.py"]))
 def test_no_file_of_the_port_imports_jax(path):
     roots = set(_imported_roots(REPO / path))
     assert not roots & set(FORBIDDEN), (path, sorted(roots & set(FORBIDDEN)))
