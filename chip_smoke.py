@@ -42,10 +42,12 @@ Phases, each of which fails the run (non-zero exit) on any fault:
    calls, the same bits), and K3, K4 and K6 are timed on them (the
    training path's 2-8 gt per image; the predict's candidates);
 8. the CLI, the product's entry point, at full width for each family: a
-   synthetic dataset of PNGs and CSVs (source domains a, b, c with 16 train
-   and 8 val images each, target i with 8 val images, 600x1200) in a
-   temporary --data_root; the calibrated random init saved as the warm
-   start .ckpt; `dgod_tpu_torch.cli.main` for `--exp dg --max_epochs 1
+   synthetic dataset in the real datasets' formats (source domains a, b,
+   c with 16 train and 8 val images each, target i with 8 val images; a,
+   c, i as 600x1200 PNGs whose rows cycle through the five PNG filters, b
+   as the 720x1280 fixture JPEGs) in a temporary --data_root; the
+   calibrated random init saved as the warm start .ckpt;
+   `dgod_tpu_torch.cli.main` for `--exp dg --max_epochs 1
    --batch_size 8 --eval_batch_size 8` (6 fused pairs, a validation and a
    test sweep), counts from 0 around it; then the test mAP finite in
    [0, 1], the best checkpoint finite and moved from the init, the launches
@@ -76,14 +78,35 @@ Phases, each of which fails the run (non-zero exit) on any fault:
    the mesh cycle must launch the kernels of 4 pairs and 2 predicts. With
    more than one card, scripts/check_multigpu_torch.py then runs over them
    (DP and TP against one-card cycles of the same arithmetic, images/s per
-   rank count); with one, that part is reported as not run.
+   rank count); with one, that part is reported as not run;
+12. the data path without cv2, run after phase 9: build the C++ decode
+   (csrc/host/image_decode.cpp) and require every fixture JPEG
+   (tests/fixtures/jpeg, written by cv2) to decode to the sha256 of
+   cv2.imread's RGB recorded beside it, and 32 1024x2048 PNGs whose rows
+   cycle through the five filters (`png_filtered`) to decode to their
+   source arrays; print the decode ms per image (C++ PNG, C++ JPEG, the
+   Python unfilter on one image); run TrainLoader and ProcessTrainLoader
+   over two DG epochs of a mixed dataset (a, c: those PNGs; b: the
+   720x1280 JPEGs), whose batches must be bit-identical, the process
+   loader's in pinned memory, printing each one's images/s per epoch, its
+   first batch's latency and the host's cores; run
+   phase 8 for FRCNN with --process_loader (its launches checked the
+   same way, counts from 0 around it) beside the thread loader's images/s;
+   fit FRCNN for one epoch through `Trainer` into a .ckpt and into a
+   directory store under deterministic algorithms (the same checkpoint
+   bits and test mAP), and save into the directory store just before an
+   in-place change of every tensor (the step written holds the values
+   before it, and no older step is left); and load the calibrated
+   full-width FRCNN written in the JAX package's .ckpt layout
+   (`jax_ckpt_bytes`) through the CLI's warm start, every tensor and one
+   predict equal to the in-memory model's bit for bit.
 
 Each family's main path also reports its second DG cycle's images/s and
 MFU (`utils.flops.train_mfu`, against the H100 SXM's dense bf16 peak).
 
 Output: one line per phase, then the card's name and power limit, then one
 JSON line {"kernels": [...]} (times, errors, bounds, and the launches of
-the two main paths, phases 4-7; phases 8-11 print theirs on lines of
+the two main paths, phases 4-7; phases 8-12 print theirs on lines of
 their own), and last
 {"ok": true, "device": {...}}. Without a CUDA device, or without the
 package beside it, the script exits non-zero and prints no result.
@@ -94,12 +117,19 @@ from __future__ import annotations
 import csv
 import json
 import os
+import shutil
+import struct
 import sys
 import tempfile
 import time
+import zlib
 
 import numpy as np
-import torch
+
+if __name__ != "__mp_main__":
+    # a spawned child (ProcessTrainLoader's) re-runs this file's top level
+    # as __mp_main__: it needs none of torch, whose import costs seconds
+    import torch
 
 # H100 SXM published peaks (NVIDIA data sheet, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
@@ -1512,26 +1542,18 @@ def run_mesh_phase(dev, root: str):
 
     from dgod_tpu_torch.parallel import multihost
 
-    saved = (torch.backends.cudnn.deterministic,
-             torch.backends.cudnn.benchmark,
-             torch.are_deterministic_algorithms_enabled())
-    torch.backends.cudnn.deterministic = True
-    torch.backends.cudnn.benchmark = False
-    torch.use_deterministic_algorithms(True, warn_only=True)
-    multihost.initialize(
-        coordinator_address="file://" + os.path.join(root, "nccl_store"),
-        num_processes=1, process_id=0)
-    try:
-        nccl = ".".join(map(str, torch.cuda.nccl.version()))
-        print(f"mesh: one-rank group, backend {dist.get_backend()}, nccl "
-              f"{nccl}, cudnn.deterministic True, benchmark False")
-        for family in ("FRCNN", "FCOS"):
-            run_mesh_family(dev, family, root)
-    finally:
-        dist.destroy_process_group()
-        torch.backends.cudnn.deterministic = saved[0]
-        torch.backends.cudnn.benchmark = saved[1]
-        torch.use_deterministic_algorithms(saved[2])
+    with deterministic():
+        multihost.initialize(
+            coordinator_address="file://" + os.path.join(root, "nccl_store"),
+            num_processes=1, process_id=0)
+        try:
+            nccl = ".".join(map(str, torch.cuda.nccl.version()))
+            print(f"mesh: one-rank group, backend {dist.get_backend()}, "
+                  f"nccl {nccl}, cudnn.deterministic True, benchmark False")
+            for family in ("FRCNN", "FCOS"):
+                run_mesh_family(dev, family, root)
+        finally:
+            dist.destroy_process_group()
     n = torch.cuda.device_count()
     if n < 2:
         print("mesh: 1 card; the multi-card part (DP and TP over every "
@@ -1550,21 +1572,32 @@ CLI_SPLITS = {("a", "train"): 16, ("b", "train"): 16, ("c", "train"): 16,
 
 
 def write_cli_dataset(root: str) -> None:
-    """PNGs (the port's stdlib writer) and CSVs in the layout of
-    DOMAIN_SPECS: smooth random backgrounds with 2-8 coloured boxes each,
-    labels 1..8."""
+    """The CLI's dataset in the layout of DOMAIN_SPECS, in the real
+    datasets' formats: domains a, c and i as PNGs whose rows cycle through
+    the five filters (smooth random backgrounds with 2-8 coloured boxes
+    each, labels 1..8), domain b (BDD100K) as JPEGs, the BDD-sized
+    fixtures with 2-8 random boxes each."""
     from dgod_tpu_torch.cli import DOMAIN_SPECS
-    from dgod_tpu_torch.data.png import write_png
 
     rng = np.random.RandomState(21)
     H, W = CLI_IMAGE
     yy, xx = np.mgrid[0:H, 0:W]
+    bdd = []
+    for name in BDD_FIXTURES:
+        with open(os.path.join(FIXTURES, name), "rb") as f:
+            bdd.append(f.read())
     for (letter, split), n in CLI_SPLITS.items():
         name, csv_tpl, root_tpl = DOMAIN_SPECS[letter]
         img_dir = os.path.join(root, root_tpl.format(split=split))
         os.makedirs(img_dir, exist_ok=True)
         rows = []
         for i in range(n):
+            if letter == "b":
+                fname = f"{name}_{split}_{i:03d}.jpg"
+                with open(os.path.join(img_dir, fname), "wb") as f:
+                    f.write(bdd[i % len(bdd)])
+                rows.append((fname, *random_boxes(rng, 720, 1280)))
+                continue
             c0, c1 = rng.randint(0, 256, (2, 3))
             t = (xx / W)[..., None]
             img = (c0 * (1 - t) + c1 * t).astype(np.uint8)
@@ -1579,20 +1612,16 @@ def write_cli_dataset(root: str) -> None:
                 boxes.append(f"{x} {y} {x + w} {y + h}")
                 labels.append(str(rng.randint(1, 9)))
             fname = f"{name}_{split}_{i:03d}.png"
-            write_png(os.path.join(img_dir, fname), img)
+            with open(os.path.join(img_dir, fname), "wb") as f:
+                f.write(png_filtered(img, kinds=np.roll((0, 1, 2, 3, 4), i)))
             rows.append((fname, ";".join(boxes), ";".join(labels)))
-        csv_path = os.path.join(root, csv_tpl.format(split=split))
-        os.makedirs(os.path.dirname(csv_path), exist_ok=True)
-        with open(csv_path, "w", newline="") as f:
-            w = csv.writer(f)
-            w.writerow(["image_name", "BoxesString", "LabelsString"])
-            w.writerows(rows)
+        write_csv(os.path.join(root, csv_tpl.format(split=split)), rows)
 
 
 def save_warm_start(dev, family: str, root: str, ckpt: str):
     """The calibrated random init, as the CLI builds the model, saved as the
     warm-start checkpoint with val_acc -inf (the reference's warm start,
-    train_driving_dg.py:154-155). -> its parameters, on the CPU."""
+    train_driving_dg.py:154-155)."""
     from dgod_tpu_torch.cli import DOMAIN_SPECS
     from dgod_tpu_torch.data.dataset import DrivingDataset
     from dgod_tpu_torch.data.loader import TrainLoader
@@ -1619,9 +1648,6 @@ def save_warm_start(dev, family: str, root: str, ckpt: str):
         -1, model.state_dict(),
         init_opt_state(dict(model.named_parameters()), opt_config),
         {"val_acc": -float("inf"), "epoch": -1})
-    init = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
-    del model
-    return init
 
 
 def cli_launches(family: str):
@@ -1635,20 +1661,29 @@ def cli_launches(family: str):
     return want
 
 
-def run_cli_phase(dev, family: str, root: str):
+def run_cli_phase(dev, family: str, root: str, extra=()):
     """Phase 8 for one family: train_driving_dg_torch.py's main at full
-    width on the card, counts from 0 around it. -> the launch counts."""
+    width on the card, with the flags `extra`, from the calibrated init
+    (made once per family and kept in `root`), counts from 0 around it.
+    -> the launch counts and the epoch's images/s."""
     from dgod_tpu_torch import cli
     from dgod_tpu_torch.train.checkpoint import CheckpointStore
 
-    wdir = os.path.join(root, f"weights_{family}")
+    wdir = os.path.join(root, "_".join(
+        [f"weights_{family}", *(a.strip("-") for a in extra)]))
     ckpt = os.path.join(wdir, "dg.ckpt")
-    init = save_warm_start(dev, family, root, ckpt)
+    init_ckpt = os.path.join(root, f"init_{family}.ckpt")
+    if not os.path.exists(init_ckpt):
+        save_warm_start(dev, family, root, init_ckpt)
+    os.makedirs(wdir)
+    shutil.copy(init_ckpt, ckpt)
+    init = CheckpointStore(init_ckpt).load_latest()[0]
     argv = ["--model", family, "--exp", "dg", "--source_domains", "ABC",
             "--target_domains", "I", "--batch_size", str(B),
             "--eval_batch_size", str(B), "--data_root", root,
             "--weights_folder", wdir, "--weights_file", "dg",
-            "--metrics_path", os.path.join(wdir, "metrics.jsonl")]
+            "--metrics_path", os.path.join(wdir, "metrics.jsonl"), *extra]
+    label = " ".join([f"CLI {family}", *extra])
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
@@ -1660,23 +1695,23 @@ def run_cli_phase(dev, family: str, root: str):
         fit_s = time.perf_counter() - t
     counts = read_counts()  # and ends here
     peak = torch.cuda.max_memory_allocated() / 2**30
-    last_calls.check(f"CLI {family}")
+    last_calls.check(label)
     map50 = float(result["map_50"])
-    print(f"CLI {family}: test mAP@0.5 {map50:.6f}; per class "
+    print(f"{label}: test mAP@0.5 {map50:.6f}; per class "
           f"{np.round(result['map_per_class'], 4).tolist()}")
     if not (np.isfinite(map50) and 0.0 <= map50 <= 1.0):
-        fail(f"CLI {family}: test mAP@0.5 {map50} is not in [0, 1]")
+        fail(f"{label}: test mAP@0.5 {map50} is not in [0, 1]")
     if counts != cli_launches(family):
-        fail(f"CLI {family}: launches {counts}, expected "
+        fail(f"{label}: launches {counts}, expected "
              f"{cli_launches(family)}")
     saved, _, meta = CheckpointStore(ckpt).load_latest()
     bad = [k for k, v in saved.items() if not torch.isfinite(v).all()]
     moved = [k for k in saved if not torch.equal(saved[k], init[k])]
-    print(f"CLI {family}: best checkpoint epoch {meta['epoch']} val_acc "
+    print(f"{label}: best checkpoint epoch {meta['epoch']} val_acc "
           f"{meta['val_acc']:.6f}; {len(moved)} of {len(saved)} tensors "
           f"moved from the init")
     if meta["epoch"] != 0 or bad or not moved:
-        fail(f"CLI {family}: checkpoint epoch {meta['epoch']}, non-finite "
+        fail(f"{label}: checkpoint epoch {meta['epoch']}, non-finite "
              f"{bad[:3]}, moved {len(moved)}")
     with open(os.path.join(wdir, "metrics.jsonl")) as f:
         epochs = [json.loads(line) for line in f
@@ -1693,16 +1728,545 @@ def run_cli_phase(dev, family: str, root: str):
     # got them in each run: the same weights must predict the same
     first, rerun = last_calls.args["K6"][0][:2], rerun_calls.args["K6"][0][:2]
     pred_diff = max(float((a - b).abs().max()) for a, b in zip(first, rerun))
-    print(f"CLI {family}: --max_epochs 0 rerun test mAP@0.5 "
+    print(f"{label}: --max_epochs 0 rerun test mAP@0.5 "
           f"{float(again['map_50']):.6f} (diff {diff:.1e}); last test "
           f"batch's NMS candidates differ by {pred_diff:.1e}")
     if diff > 1e-6 or pred_diff > 1e-4:
-        fail(f"CLI {family}: the rerun from the checkpoint predicts "
+        fail(f"{label}: the rerun from the checkpoint predicts "
              f"otherwise (mAP {diff}, candidates {pred_diff})")
-    print(f"CLI {family}: train {img_s:.2f} images/s (6 fused pairs of "
+    print(f"{label}: train {img_s:.2f} images/s (6 fused pairs of "
           f"{B}, each batch twice); fit+val+test {fit_s:.1f} s, rerun "
           f"(load + test) {test_s:.1f} s; peak memory {peak:.1f} GiB; "
           f"launches {counts}")
+    return counts, img_s
+
+
+# -- the data phase: cv2-free decode, ProcessTrainLoader, the stores ---------
+
+FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                        "fixtures", "jpeg")
+BDD_FIXTURES = ("bdd_720x1280.jpg", "bdd_720x1280_q90.jpg")
+DATA_PNG = (1024, 2048)  # Cityscapes' (and the loader check's a and c)
+DATA_PER_DOMAIN = 16
+
+
+def png_filtered(img: np.ndarray, kinds=(0, 1, 2, 3, 4)) -> bytes:
+    """RGB or RGBA uint8 [H, W, C] -> PNG bytes whose row y uses filter
+    kinds[y % len(kinds)] (0 None, 1 Sub, 2 Up, 3 Average, 4 Paeth), each
+    row filtered at once in numpy from the source bytes, as libpng does."""
+    from dgod_tpu_torch.data import png
+
+    h, w, c = img.shape
+    x = img.reshape(h, w * c).astype(np.int16)
+    a = np.zeros_like(x)  # left
+    a[:, c:] = x[:, :-c]
+    b = np.zeros_like(x)  # up
+    b[1:] = x[:-1]
+    ul = np.zeros_like(x)  # up-left
+    ul[1:, c:] = x[:-1, :-c]
+    p = a + b - ul
+    pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - ul)
+    paeth = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, ul))
+    preds = (np.zeros_like(x), a, b, (a + b) >> 1, paeth)
+    kind = np.asarray([kinds[y % len(kinds)] for y in range(h)], np.uint8)
+    rows = np.empty((h, 1 + w * c), np.uint8)
+    rows[:, 0] = kind
+    rows[:, 1:] = (x - np.choose(kind[:, None].astype(np.intp), preds)) & 255
+    colour = {3: 2, 4: 6}[c]
+    return (png.SIGNATURE
+            + png._chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, colour,
+                                              0, 0, 0))
+            + png._chunk(b"IDAT", zlib.compress(rows.tobytes(), 1))  # fast
+            + png._chunk(b"IEND", b""))
+
+
+def scene(rng: np.random.RandomState, hw) -> np.ndarray:
+    """A synthetic RGB road scene: a colour gradient, 2-8 flat boxes and
+    +-12 of noise, so the filters and the inflate see a photograph's
+    entropy."""
+    H, W = hw
+    c0, c1 = rng.randint(0, 256, (2, 3))
+    t = np.linspace(0.0, 1.0, W, dtype=np.float32)[None, :, None]
+    img = np.broadcast_to(c0 * (1 - t) + c1 * t, (H, W, 3)).astype(np.int16)
+    img = img + rng.randint(-12, 13, (H, W, 3)).astype(np.int16)
+    for _ in range(rng.randint(2, 9)):
+        h, w = rng.randint(H // 20, H // 3), rng.randint(W // 30, W // 4)
+        y, x = rng.randint(0, H - h), rng.randint(0, W - w)
+        img[y:y + h, x:x + w] = rng.randint(0, 256, 3)
+    return np.clip(img, 0, 255).astype(np.uint8)
+
+
+def msgpack_pack(obj) -> bytes:
+    """msgpack of a tree the way flax.serialization.msgpack_serialize packs
+    it (tests/test_torch_checkpoint.py holds the bytes to flax's): maps in
+    sorted key order (jax's tree_map sorts them), lists, str, bytes, bool,
+    None, int in its smallest form, float as float64, numpy arrays as ext
+    1 and numpy scalars as ext 3 of msgpack (shape, dtype name, C bytes)."""
+    out = bytearray()
+    _pack(obj, out)
+    return bytes(out)
+
+
+def _pack_header(out: bytearray, n: int, fix: int, fix_max: int, codes):
+    if n <= fix_max:
+        out.append(fix | n)
+    elif n < 1 << 8 and codes[0] is not None:
+        out += struct.pack(">BB", codes[0], n)
+    elif n < 1 << 16:
+        out += struct.pack(">BH", codes[1], n)
+    else:
+        out += struct.pack(">BI", codes[2], n)
+
+
+def _pack(o, out: bytearray) -> None:
+    if isinstance(o, np.ndarray):
+        body = msgpack_pack((list(o.shape), o.dtype.name,
+                             np.ascontiguousarray(o).tobytes()))
+        _pack_ext(1, body, out)
+    elif isinstance(o, np.generic):
+        body = msgpack_pack(((), o.dtype.name, np.asarray(o).tobytes()))
+        _pack_ext(3, body, out)
+    elif o is None:
+        out.append(0xC0)
+    elif o is True or o is False:
+        out.append(0xC3 if o else 0xC2)
+    elif isinstance(o, int):
+        if 0 <= o < 0x80 or -32 <= o < 0:
+            out += struct.pack(">b" if o < 0 else ">B", o)
+        elif o >= 0:
+            for code, fmt, top in ((0xCC, ">B", 1 << 8), (0xCD, ">H", 1 << 16),
+                                   (0xCE, ">I", 1 << 32),
+                                   (0xCF, ">Q", 1 << 64)):
+                if o < top:
+                    out += struct.pack(">B", code) + struct.pack(fmt, o)
+                    break
+        else:
+            for code, fmt, low in ((0xD0, ">b", -(1 << 7)),
+                                   (0xD1, ">h", -(1 << 15)),
+                                   (0xD2, ">i", -(1 << 31)),
+                                   (0xD3, ">q", -(1 << 63))):
+                if o >= low:
+                    out += struct.pack(">B", code) + struct.pack(fmt, o)
+                    break
+    elif isinstance(o, float):
+        out += struct.pack(">Bd", 0xCB, o)
+    elif isinstance(o, str):
+        b = o.encode("utf-8")
+        _pack_header(out, len(b), 0xA0, 31, (0xD9, 0xDA, 0xDB))
+        out += b
+    elif isinstance(o, bytes):
+        _pack_header(out, len(o), 0, -1, (0xC4, 0xC5, 0xC6))
+        out += o
+    elif isinstance(o, (list, tuple)):
+        _pack_header(out, len(o), 0x90, 15, (None, 0xDC, 0xDD))
+        for v in o:
+            _pack(v, out)
+    elif isinstance(o, dict):
+        _pack_header(out, len(o), 0x80, 15, (None, 0xDE, 0xDF))
+        for k in sorted(o):
+            _pack(k, out)
+            _pack(o[k], out)
+    else:
+        raise TypeError(f"msgpack_pack: {type(o).__name__}")
+
+
+def _pack_ext(code: int, body: bytes, out: bytearray) -> None:
+    fixed = {1: 0xD4, 2: 0xD5, 4: 0xD6, 8: 0xD7, 16: 0xD8}
+    if len(body) in fixed:
+        out += struct.pack(">Bb", fixed[len(body)], code)
+    else:
+        _pack_header(out, len(body), 0, -1, (0xC7, 0xC8, 0xC9))
+        out += struct.pack(">b", code)
+    out += body
+
+
+def jax_layout(state_dict) -> dict:
+    """The port's state_dict as the JAX package's parameter tree, keys
+    sorted: the inverse of utils/weights.py::params_from_jax (OIHW ->
+    HWIO, dense [out, in] -> [in, out], the DG banks' [D, in, out] as they
+    are)."""
+    tree = {}
+    for key, t in state_dict.items():
+        *mods, leaf = key.split(".")
+        arr = t.detach().cpu().numpy()
+        if leaf == "weight":
+            leaf = "kernel"
+            if arr.ndim == 4:
+                arr = arr.transpose(2, 3, 1, 0)
+            elif arr.ndim == 2:
+                arr = arr.T
+        node = tree
+        for m in mods:
+            node = node.setdefault(m, {})
+        node[leaf] = np.ascontiguousarray(arr)
+
+    def ordered(node):  # keys sorted, as a jax tree_map leaves them
+        if not isinstance(node, dict):
+            return node
+        return {k: ordered(node[k]) for k in sorted(node)}
+
+    return ordered(tree)
+
+
+def jax_ckpt_bytes(params_tree, opt_tree, meta) -> bytes:
+    """A `.ckpt` as the JAX package's PickleStore writes it: a pickle of
+    flax msgpack bytes of the parameter and optimizer trees, and `meta`
+    with its step (dgod_tpu/train/checkpoint.py:35-44)."""
+    import pickle
+
+    return pickle.dumps({"params": msgpack_pack(params_tree),
+                         "opt_state": msgpack_pack(opt_tree),
+                         "meta": meta})
+
+
+class deterministic:
+    """cuDNN's deterministic algorithms and torch's, for a block whose runs
+    must agree bit for bit; the settings before are restored after."""
+
+    def __enter__(self):
+        self.saved = (torch.backends.cudnn.deterministic,
+                      torch.backends.cudnn.benchmark,
+                      torch.are_deterministic_algorithms_enabled())
+        torch.backends.cudnn.deterministic = True
+        torch.backends.cudnn.benchmark = False
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        return self
+
+    def __exit__(self, *exc):
+        torch.backends.cudnn.deterministic = self.saved[0]
+        torch.backends.cudnn.benchmark = self.saved[1]
+        torch.use_deterministic_algorithms(self.saved[2])
+
+
+def check_decode(smi: str):
+    """Data phase 1-3: build the C++ decode; every fixture JPEG (written
+    with cv2, tests/fixtures/jpeg) decodes to the sha256 of cv2.imread's
+    RGB recorded beside it; 1024x2048 PNGs using all five filters decode
+    to their source arrays; the decode times. -> {"png": the PNGs' bytes
+    and arrays}."""
+    import hashlib
+
+    from dgod_tpu_torch.data import jpeg, native, png
+    from dgod_tpu_torch.utils.timing import host_ms
+
+    _, ms = host_ms(native.IMAGE_DECODE.get, "cpu")
+    print(f"data: built csrc/host/image_decode.cpp with g++ in {ms:.0f} ms")
+    with open(os.path.join(FIXTURES, "hashes.json")) as f:
+        hashes = json.load(f)
+    for name, want in sorted(hashes.items()):
+        img = jpeg.read_jpeg(os.path.join(FIXTURES, name))
+        got = hashlib.sha256(img.tobytes()).hexdigest()
+        if got != want["sha256"] or list(img.shape) != want["shape"]:
+            fail(f"data: {name} decodes to {got[:12]} {img.shape}, cv2.imread "
+                 f"gave {want['sha256'][:12]} {want['shape']}")
+    print(f"data: {len(hashes)} fixture JPEGs (4:2:0, 4:2:2, 4:4:4, 4:4:0, "
+          "odd sizes, restart intervals, grayscale, 720x1280) equal "
+          "cv2.imread's recorded RGB hashes")
+
+    rng = np.random.RandomState(31)
+    arrays = [scene(rng, DATA_PNG) for _ in range(2 * DATA_PER_DOMAIN)]
+    files, t = [], time.perf_counter()
+    for i, img in enumerate(arrays):
+        files.append(png_filtered(img, kinds=np.roll((0, 1, 2, 3, 4), i)))
+    encode_s = time.perf_counter() - t
+    t = time.perf_counter()
+    for data, img in zip(files, arrays):
+        if not np.array_equal(png.decode_png(data), img):
+            fail(f"data: a filtered {DATA_PNG} PNG decodes otherwise than "
+                 "its source")
+    png_ms = (time.perf_counter() - t) * 1e3 / len(files)
+    t = time.perf_counter()
+    for data in files:
+        png._inflate(data, "<bytes>")  # the chunks and zlib alone
+    inflate_ms = (time.perf_counter() - t) * 1e3 / len(files)
+    bdd = [open(os.path.join(FIXTURES, n), "rb").read() for n in BDD_FIXTURES]
+    for data in bdd:  # warm
+        jpeg.decode_jpeg(data)
+    reps = 8
+    t = time.perf_counter()
+    for _ in range(reps):
+        for data in bdd:
+            jpeg.decode_jpeg(data)
+    jpeg_ms = (time.perf_counter() - t) * 1e3 / (reps * len(bdd))
+    (plain, plain_ms) = host_ms(lambda: png.decode_png_plain(files[0]), "cpu")
+    if not np.array_equal(plain, arrays[0]):
+        fail("data: the Python unfilter disagrees with the source")
+    print(f"data: {len(files)} PNGs of {DATA_PNG} (rows cycling filters 0-4,"
+          f" zlib level 1, {sum(map(len, files)) / len(files) / 2**20:.2f} "
+          f"MiB each, encoded in {encode_s:.1f} s) decode to their sources")
+    print(f"data: decode ms per image on the host (one thread; {smi}): C++ "
+          f"PNG {DATA_PNG} {png_ms:.2f} (of which zlib's inflate "
+          f"{inflate_ms:.2f}), C++ JPEG "
+          f"720x1280 {jpeg_ms:.2f} (mean of the two BDD-sized fixtures, "
+          f"{sum(map(len, bdd)) / len(bdd) / 1024:.0f} KiB each), Python "
+          f"unfilter PNG {DATA_PNG} {plain_ms:.1f} (one image)")
+    return {"png": list(zip(files, arrays)), "bdd": bdd}
+
+
+def write_loader_dataset(root: str, decoded) -> str:
+    """Data phase 4's dataset in DOMAIN_SPECS's layout: domains a and c
+    the filtered 1024x2048 PNGs, b the BDD-sized fixture JPEGs (as the
+    real datasets hold them), 2-8 random boxes per image. -> its root."""
+    from dgod_tpu_torch.cli import DOMAIN_SPECS
+
+    data_root = os.path.join(root, "loader_data")
+    rng = np.random.RandomState(41)
+    pngs = iter(decoded["png"])
+    for letter in "abc":
+        name, csv_tpl, root_tpl = DOMAIN_SPECS[letter]
+        img_dir = os.path.join(data_root, root_tpl.format(split="train"))
+        os.makedirs(img_dir, exist_ok=True)
+        rows = []
+        for i in range(DATA_PER_DOMAIN):
+            if letter == "b":
+                data, (H, W) = decoded["bdd"][i % 2], (720, 1280)
+                fname = f"{name}_{i:03d}.jpg"
+            else:
+                data, img = next(pngs)
+                (H, W), fname = img.shape[:2], f"{name}_{i:03d}.png"
+            with open(os.path.join(img_dir, fname), "wb") as f:
+                f.write(data)
+            rows.append((fname, *random_boxes(rng, H, W)))
+        write_csv(os.path.join(data_root, csv_tpl.format(split="train")),
+                  rows)
+    return data_root
+
+
+def random_boxes(rng: np.random.RandomState, H: int, W: int):
+    """2-8 boxes inside an HxW image, labels 1..8, as CSV cells."""
+    boxes, labels = [], []
+    for _ in range(rng.randint(2, 9)):
+        w, h = rng.randint(W // 30, W // 3), rng.randint(H // 20, H * 5 // 12)
+        x, y = rng.randint(0, W - w), rng.randint(0, H - h)
+        boxes.append(f"{x} {y} {x + w} {y + h}")
+        labels.append(str(rng.randint(1, 9)))
+    return ";".join(boxes), ";".join(labels)
+
+
+def write_csv(path: str, rows) -> None:
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(path, "w", newline="") as f:
+        w = csv.writer(f)
+        w.writerow(["image_name", "BoxesString", "LabelsString"])
+        w.writerows(rows)
+
+
+def batch_digest(batch) -> str:
+    """sha256 over a batch's keys, shapes, dtypes and bytes."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for k in sorted(batch):
+        v = np.ascontiguousarray(batch[k])
+        h.update(f"{k}{v.shape}{v.dtype}".encode())
+        h.update(v.data)
+    return h.hexdigest()
+
+
+def run_loaders(root: str, decoded, smi: str):
+    """Data phase 4: TrainLoader and ProcessTrainLoader (pinned copy-out)
+    over the same mixed dataset, two DG epochs each (every batch twice);
+    the batches must be bit-identical (their digests, so no batch outlives
+    its step and the pinned blocks are reused, as in training) and the
+    process loader's in pinned memory. -> images/s of each in the second
+    epoch."""
+    from dgod_tpu_torch.cli import DOMAIN_SPECS
+    from dgod_tpu_torch.data.dataset import ConcatDataset, DrivingDataset
+    from dgod_tpu_torch.data.loader import ProcessTrainLoader, TrainLoader
+
+    data_root = write_loader_dataset(root, decoded)
+    datasets = []
+    for d, letter in enumerate("abc"):
+        _, csv_tpl, root_tpl = DOMAIN_SPECS[letter]
+        datasets.append(DrivingDataset(
+            os.path.join(data_root, csv_tpl.format(split="train")),
+            os.path.join(data_root, root_tpl.format(split="train")), d))
+    data = ConcatDataset(datasets)
+    rates, digests, first, pinned = {}, {}, {}, False
+    for label, cls, kw in (("TrainLoader", TrainLoader, {}),
+                           ("ProcessTrainLoader", ProcessTrainLoader,
+                            {"pin_memory": True})):
+        loader = cls(data, B, dg=True, seed=42, **kw)
+        digests[label], rates[label] = [], []
+        try:
+            for _ in range(2):  # the first epoch starts a process loader
+                t = time.perf_counter()
+                for i, batch in enumerate(loader.epoch()):
+                    if i == 0:
+                        first.setdefault(label, time.perf_counter() - t)
+                    if i == 0 and kw:  # the process loader's
+                        pinned = all(torch.from_numpy(v).is_pinned()
+                                     for v in batch.values())
+                    digests[label].append(batch_digest(batch))
+                rates[label].append((i + 1) * B / (time.perf_counter() - t))
+        finally:
+            if hasattr(loader, "close"):
+                loader.close()
+    a, b = digests["TrainLoader"], digests["ProcessTrainLoader"]
+    same = len(a) == 4 * (len(data) // B) and a == b
+    cores = len(os.sched_getaffinity(0))
+    (t1, t2), (p1, p2) = rates["TrainLoader"], rates["ProcessTrainLoader"]
+    print(f"data: loaders over {len(data)} images (a, c: PNG {DATA_PNG}; b: "
+          f"JPEG (720, 1280)), batch {B}, two DG epochs ({len(a)} batches), "
+          f"8 worker threads, {cores} host cores: images/s in epoch 2 "
+          f"TrainLoader {t2:.2f}, ProcessTrainLoader {p2:.2f}; in epoch 1 "
+          f"{t1:.2f} and {p1:.2f} (the process loader's spawn included; "
+          f"first batch after {first['TrainLoader']:.2f} and "
+          f"{first['ProcessTrainLoader']:.2f} s); "
+          f"batches {'bit-identical' if same else 'DIFFERENT'}; the process "
+          f"loader's batches in pinned memory: {pinned} ({smi})")
+    if not same:
+        fail("data: ProcessTrainLoader's batches differ from TrainLoader's")
+    if not pinned:
+        fail("data: ProcessTrainLoader(pin_memory=True) gave pageable arrays")
+    return {"TrainLoader": t2, "ProcessTrainLoader": p2}
+
+
+def run_directory_store(dev, root: str):
+    """Data phase 5b: the CLI's FRCNN (its datasets, the calibrated init of
+    the CLI phase, the process loader) through `Trainer` for one epoch into
+    a `.ckpt` and into a directory store, under deterministic algorithms:
+    the two checkpoints must hold the same bits and the two test reloads
+    give the same mAP. Then a save into the directory store followed at
+    once by an in-place change of every parameter on the card: the step
+    written must hold the values before the change, and only that step
+    may be left."""
+    from dgod_tpu_torch import cli
+    from dgod_tpu_torch.data.loader import EvalLoader, ProcessTrainLoader
+    from dgod_tpu_torch.models.dg_frcnn import DGFRCNNModel
+    from dgod_tpu_torch.train.checkpoint import (CheckpointStore,
+                                                 DirectoryStore, make_store)
+    from dgod_tpu_torch.train.harness import Trainer
+
+    tr, _, vl, test = cli.datasets_from_arguments("abc", "i", root)
+    init = CheckpointStore(os.path.join(root, "init_FRCNN.ckpt")
+                           ).load_latest()[0]
+    results = {}
+    for kind, path in (("file", os.path.join(root, "store", "s.ckpt")),
+                       ("directory", os.path.join(root, "store", "dir"))):
+        model = DGFRCNNModel(num_classes=9, num_domains=3, canvas=CANVAS,
+                             device=dev, seed=42)
+        model.load_state_dict(init)
+        with deterministic():
+            trainer = Trainer(
+                model, ProcessTrainLoader(tr, B, True, seed=42,
+                                          pin_memory=True),
+                EvalLoader(vl, B, False), dg=True, max_epochs=1,
+                ckpt_path=path, seed=42, log_every=10 ** 9, device=dev)
+            trainer.fit()
+            result = trainer.test(EvalLoader(test, B, False))
+        saved = make_store(path).load_latest()
+        results[kind] = (float(result["map_50"]), saved)
+        if kind == "directory":
+            if not isinstance(trainer.store, DirectoryStore):
+                fail(f"data: make_store({path!r}) is not a DirectoryStore")
+            store, live = trainer.store, dict(model.state_dict())
+    (m_file, (p_file, o_file, meta_file)), (m_dir, (p_dir, o_dir, meta_dir)) \
+        = results["file"], results["directory"]
+    same = (p_file.keys() == p_dir.keys()
+            and all(torch.equal(p_file[k], p_dir[k]) for k in p_file))
+    print(f"data: Trainer fit into a .ckpt and into a directory store, "
+          f"deterministic: checkpoints {'bit-identical' if same else 'DIFFER'}"
+          f" (epoch {meta_file['epoch']} / {meta_dir['epoch']}); test "
+          f"reload mAP@0.5 {m_file!r} / {m_dir!r}")
+    if not same or m_file != m_dir:
+        fail("data: the directory store's checkpoint or test mAP differs "
+             "from the .ckpt's")
+    before = {k: v.detach().clone() for k, v in live.items()}
+    store.save(7, live, {}, {"val_acc": 0.5, "epoch": 7})
+    with torch.no_grad():  # queued at once behind the save's copy
+        for v in live.values():
+            v.add_(1.0)
+    store.wait()
+    got, _, meta = store.load_latest()
+    kept = sorted(os.listdir(store.dir))
+    intact = all(torch.equal(got[k], before[k].cpu()) for k in before)
+    print(f"data: a save followed at once by an in-place change of every "
+          f"tensor on the card wrote the values before it: {intact}; steps "
+          f"left {kept}")
+    if not intact or kept != ["7"] or meta["epoch"] != 7:
+        fail("data: the directory store's asynchronous save is not a "
+             "snapshot, or kept an older step")
+
+
+def run_jax_ckpt(dev, root: str):
+    """Data phase 6: the calibrated full-width FRCNN of the CLI phase
+    written in the JAX package's `.ckpt` layout (`jax_ckpt_bytes`: flax
+    msgpack in a pickle, SGD's empty state), loaded by the CLI's warm
+    start (`--max_epochs 0`): every tensor equal to the written one, and
+    one predict of the loaded model equal to the in-memory model's bit for
+    bit."""
+    from dgod_tpu_torch import cli
+    from dgod_tpu_torch.data.loader import EvalLoader, to_tensor
+    from dgod_tpu_torch.models.dg_frcnn import DGFRCNNModel
+    from dgod_tpu_torch.train import steps as S
+    from dgod_tpu_torch.train.checkpoint import CheckpointStore
+
+    init = CheckpointStore(os.path.join(root, "init_FRCNN.ckpt")
+                           ).load_latest()[0]
+    wdir = os.path.join(root, "weights_jax")
+    os.makedirs(wdir)
+    with open(os.path.join(wdir, "jax.ckpt"), "wb") as f:
+        f.write(jax_ckpt_bytes(jax_layout(init), {},
+                               {"val_acc": -float("inf"), "epoch": -1,
+                                "step": -1}))
+    made = []
+
+    class Recorded(cli.Trainer):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            made.append(self)
+
+    argv = ["--model", "FRCNN", "--exp", "dg", "--source_domains", "ABC",
+            "--target_domains", "I", "--batch_size", str(B),
+            "--eval_batch_size", str(B), "--data_root", root,
+            "--weights_folder", wdir, "--weights_file", "jax",
+            "--max_epochs", "0"]
+    original, cli.Trainer = cli.Trainer, Recorded
+    try:
+        result = cli.main(argv)
+    finally:
+        cli.Trainer = original
+    loaded = made[-1].model
+    sd = loaded.state_dict()
+    equal = sd.keys() == init.keys() and all(
+        torch.equal(sd[k].cpu(), init[k]) for k in init)
+    own = DGFRCNNModel(num_classes=9, num_domains=3, canvas=CANVAS,
+                       device=dev, seed=0)
+    own.load_state_dict(init)
+    _, _, _, test = cli.datasets_from_arguments("abc", "i", root)
+    batch = next(iter(EvalLoader(test, B, False)))
+    placed = {k: to_tensor(v, dev) for k, v in batch.items()}
+    with deterministic():
+        a = S.make_eval_step(loaded)(placed)
+        b = S.make_eval_step(own)(placed)
+    same = all(torch.equal(a[k], b[k]) for k in ("boxes", "scores", "labels",
+                                                 "valid"))
+    print(f"data: a full-width FRCNN in the JAX .ckpt layout "
+          f"({os.path.getsize(os.path.join(wdir, 'jax.ckpt')) / 2**20:.1f} "
+          f"MiB) warm-started by the CLI: {len(init)} tensors equal to the "
+          f"written ones: {equal}; one predict equal to the in-memory "
+          f"model's bit for bit: {same}; test mAP@0.5 "
+          f"{float(result['map_50']):.6f}")
+    if not (equal and same):
+        fail("data: the JAX .ckpt did not load bit for bit")
+
+
+def run_data_phase(dev, root: str, smi: str, thread_cli):
+    """Phase 12, the data path as the real datasets need it, without
+    cv2: the decode (fixtures against cv2's hashes, filtered PNGs against
+    their sources, times), the two train loaders, the CLI with
+    --process_loader against the thread loader's run of phase 8, the
+    directory store, and a JAX package .ckpt through the CLI's warm
+    start. -> the process-loader CLI run's launches."""
+    decoded = check_decode(smi)
+    run_loaders(root, decoded, smi)
+    counts, img_s = run_cli_phase(dev, "FRCNN", root, ["--process_loader"])
+    print(f"data: CLI FRCNN epoch {img_s:.2f} images/s with "
+          f"--process_loader, {thread_cli:.2f} with the thread loader "
+          f"(phase 8, same data and init; {smi})")
+    run_directory_store(dev, root)
+    run_jax_ckpt(dev, root)
     return counts
 
 
@@ -1774,12 +2338,22 @@ def main() -> int:
         print(f"mesh phase: {time.perf_counter() - t:.1f} s")
         t = time.perf_counter()
         write_cli_dataset(root)
-        print(f"CLI dataset: {sum(CLI_SPLITS.values())} PNGs of "
-              f"{CLI_IMAGE} written in {time.perf_counter() - t:.1f} s")
-        phases = [("CLI", run_cli_phase), ("warm start", run_warm_start_phase)]
-        for label, run in phases:
-            for family in ("FRCNN", "FCOS"):
-                print(f"{label} {family} launches: {run(dev, family, root)}")
+        n_b = sum(n for (letter, _), n in CLI_SPLITS.items() if letter == "b")
+        print(f"CLI dataset: {sum(CLI_SPLITS.values()) - n_b} PNGs of "
+              f"{CLI_IMAGE} (rows cycling the five filters) and {n_b} JPEGs "
+              f"of (720, 1280) (domain b) written in "
+              f"{time.perf_counter() - t:.1f} s")
+        cli_img_s = {}
+        for family in ("FRCNN", "FCOS"):
+            cli_counts, cli_img_s[family] = run_cli_phase(dev, family, root)
+            print(f"CLI {family} launches: {cli_counts}")
+        for family in ("FRCNN", "FCOS"):
+            print(f"warm start {family} launches: "
+                  f"{run_warm_start_phase(dev, family, root)}")
+        t = time.perf_counter()
+        data_counts = run_data_phase(dev, root, smi, cli_img_s["FRCNN"])
+        print(f"CLI FRCNN --process_loader launches: {data_counts}; data "
+              f"phase {time.perf_counter() - t:.1f} s")
         for family in ("FCOS", "FRCNN"):
             print(f"learn {family} launches: "
                   f"{run_learn_phase(dev, family, root)}")

@@ -7,9 +7,7 @@ kernel under `csrc/`, built with nvcc at first use (`ops/_build.py`) and
 kept beside a plain PyTorch version of the same function; a wrapper sends a
 CPU tensor to the plain version and a CUDA tensor to the kernel.
 
-Entry points run on the card unless the caller passes `device="cpu"`.
+Entry points run on the card unless the caller passes `device="cpu"`
+(`device.py::resolve_device`). Importing the package imports no torch:
+a train loader's child process imports the data modules only.
 """
-
-from .device import resolve_device
-
-__all__ = ["resolve_device"]

@@ -17,8 +17,9 @@ of ranks, one process per card (parallel/), launched as
   torchrun --nproc_per_node 4 train_driving_dg_torch.py --mesh auto ...
 
 with `--batch_size` the batch each node loads, split over its ranks.
-`--process_loader` is parsed as in the JAX package and raises
-NotImplementedError when set: the port has it in ROADMAP Queue A.
+`--process_loader` runs the train loader in a child process
+(`data/loader.py::ProcessTrainLoader`), its batches copied into pinned
+memory on the card.
 """
 
 from __future__ import annotations
@@ -31,7 +32,7 @@ import numpy as np
 import torch
 
 from .data.dataset import ConcatDataset, DrivingDataset
-from .data.loader import EvalLoader, TrainLoader
+from .data.loader import EvalLoader, ProcessTrainLoader, TrainLoader
 from .device import resolve_device
 from .train.harness import Trainer
 
@@ -46,9 +47,7 @@ DOMAIN_SPECS = {
 }
 
 # flags the port parses but does not run yet, and where they stand
-NOT_PORTED = {
-    "process_loader": "Queue A 14 (ProcessTrainLoader)",
-}
+NOT_PORTED = {}
 
 
 def parser_args(argv=None):
@@ -110,9 +109,8 @@ def parser_args(argv=None):
                              "'data=N', 'data=N,model=M' or 'model=M' "
                              "(the head layers split over M ranks)")
     parser.add_argument("--process_loader", action="store_true",
-                        help="run the train loader in a child process (not "
-                             "in the port yet: ROADMAP "
-                             + NOT_PORTED["process_loader"] + ")")
+                        help="run the train loader in a child process "
+                             "(batches through shared memory)")
     return parser.parse_args(argv)
 
 
@@ -216,8 +214,14 @@ def main(argv=None, device=None):
         raise ValueError(args.model)
 
     dg = args.exp == "dg"
-    train_loader = TrainLoader(tr_dataset, args.batch_size, dg, seed=SEED,
-                               resample_replay=args.reference_quirks)
+    loader_kw = dict(seed=SEED, resample_replay=args.reference_quirks)
+    if args.process_loader:
+        train_loader = ProcessTrainLoader(
+            tr_dataset, args.batch_size, dg,
+            pin_memory=dev.type == "cuda", **loader_kw)
+    else:
+        train_loader = TrainLoader(tr_dataset, args.batch_size, dg,
+                                   **loader_kw)
     val_loader = EvalLoader(vl_dataset, args.eval_batch_size, val_resize,
                             pad_to_batches=pad_batches.get("val"))
     test_loader = EvalLoader(test_dataset, args.eval_batch_size, val_resize,

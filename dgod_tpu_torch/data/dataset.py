@@ -14,8 +14,9 @@ The CSV is read with the stdlib `csv` module (pandas is not needed); each
 cell becomes the string `str()` gives of what `pandas.read_csv` makes of it
 (`pandas_cell_strings`), so the annotations decode as the JAX package
 decodes them. Images load through OpenCV (BGR -> RGB) where cv2 imports,
-as the reference does, and through the stdlib PNG reader (`png.read_png`)
-otherwise.
+as the reference does, and otherwise through the port's own readers,
+chosen by the file's first bytes: PNG (`png.decode_png`) or baseline JPEG
+(`jpeg.decode_jpeg`), both of which give what cv2 gives, bit for bit.
 """
 
 from __future__ import annotations
@@ -120,14 +121,21 @@ def sanitize_boxes(boxes: np.ndarray, height: int, width: int) -> np.ndarray:
 
 
 def load_rgb(path: str) -> np.ndarray:
-    """An image file -> RGB uint8 [H, W, 3]: OpenCV where it imports, the
-    stdlib PNG reader otherwise."""
+    """An image file -> RGB uint8 [H, W, 3]: OpenCV where it imports, else
+    the PNG or JPEG reader that the file's signature names."""
     try:
         import cv2
     except ImportError:
-        from .png import read_png
+        from . import jpeg, png
 
-        return read_png(path)
+        with open(path, "rb") as f:
+            data = f.read()
+        if data.startswith(png.SIGNATURE):
+            return png.decode_png(data, path)
+        if data.startswith(jpeg.SIGNATURE):
+            return jpeg.decode_jpeg(data, path)
+        raise ValueError(f"{path}: neither a PNG nor a JPEG file; without "
+                         "cv2 the port reads those two formats only")
     img = cv2.imread(path)
     if img is None:
         raise FileNotFoundError(path)
@@ -158,6 +166,19 @@ class DrivingDataset:
         self._cache_budget = int(decode_cache_bytes)
         self._cache: dict = {}
         self._cache_used = 0
+        self._cache_lock = threading.Lock()
+
+    def __getstate__(self):
+        # a loader's child process gets the annotations, not the parent's
+        # cache (it fills its own) or its lock
+        state = dict(self.__dict__)
+        state["_cache"] = {}
+        state["_cache_used"] = 0
+        del state["_cache_lock"]
+        return state
+
+    def __setstate__(self, state):
+        self.__dict__.update(state)
         self._cache_lock = threading.Lock()
 
     def __len__(self):

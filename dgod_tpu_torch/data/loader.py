@@ -1,6 +1,6 @@
 """Batch loaders with the DG twice-per-batch sampler, threaded decode, and
 the copy of batches to the card (the port's own copy of
-dgod_tpu/data/loader.py, less ProcessTrainLoader).
+dgod_tpu/data/loader.py).
 
 A loader may be given a row block (`rows=(start, stop)`): it then yields
 only those rows of every batch. It keeps the order and the per-image
@@ -19,14 +19,26 @@ DataLoader workers (DGcommon.py:151).
 from __future__ import annotations
 
 import collections
+import os
+import queue as queue_mod
+import threading
 from concurrent.futures import ThreadPoolExecutor
 from queue import Queue
 from typing import Iterator, Optional
 
 import numpy as np
-import torch
 
 from . import transforms as T
+
+# torch is imported inside the functions that use it: ProcessTrainLoader's
+# child process imports this module, and an import of torch (its CUDA
+# libraries) costs it seconds of start-up for nothing
+
+# serialises the os.environ window in ProcessTrainLoader._start (a spawned
+# child inherits the parent's environment; Process has no env= parameter)
+_SPAWN_ENV_LOCK = threading.Lock()
+# how often a waiting parent looks whether its loader child is alive (s)
+POLL_S = 5.0
 
 
 def device_prefetch(iterator, device):
@@ -40,6 +52,8 @@ def device_prefetch(iterator, device):
     with them). Elsewhere the batch is simply converted. A non-array entry
     (the eval loader's `num_real`) passes through as it is.
     """
+    import torch
+
     device = torch.device(device)
     if device.type != "cuda":
         for batch in iterator:
@@ -78,8 +92,12 @@ def to_tensor(v, device, pin: bool = False):
     non-blocking copy with `pin`); anything else as it is."""
     if not isinstance(v, np.ndarray):
         return v
+    import torch
+
     t = torch.from_numpy(np.ascontiguousarray(v))
     if pin:
+        # an array in page-locked memory already (ProcessTrainLoader's
+        # pin_memory) is copied from where it is
         return t.pin_memory().to(device, non_blocking=True)
     return t.to(device)
 
@@ -173,6 +191,237 @@ class TrainLoader:
                 futures = pending.get()
                 yield T.stack_examples([f.result() for f in futures])
                 buffered -= 1
+
+
+def _slot_views(buf, spec):
+    """One shared-memory slot's buffer as per-key numpy views: the single
+    definition of the slot layout, used by both sides of the ring, the
+    writer (`_loader_proc_main`) and the reader (`ProcessTrainLoader`)."""
+    off, views = 0, {}
+    for k, shape, dtype in spec:
+        n = int(np.prod(shape)) * np.dtype(dtype).itemsize
+        views[k] = np.ndarray(shape, dtype, buffer=buf[off:off + n])
+        off += n
+    return views
+
+
+def _loader_proc_main(dataset, loader_kwargs, t_overrides, n_slots,
+                      full_q, free_q):
+    """The child process of ProcessTrainLoader: a TrainLoader (its thread
+    pool and all) writing each fixed-shape batch into one of `n_slots`
+    shared-memory slots. A failure (a bad file, an empty dataset) is
+    reported through the queue, so the parent raises instead of waiting on
+    a dead child."""
+    from multiprocessing import shared_memory
+
+    for k, v in t_overrides.items():
+        setattr(T, k, v)
+    shms, views = [], []  # views[slot][key] -> np.ndarray in that slot
+    try:
+        loader = TrainLoader(dataset, **loader_kwargs)
+        if loader.steps_per_epoch() == 0:
+            raise ValueError(
+                f"empty loader: {len(dataset)} examples < batch_size "
+                f"{loader_kwargs['batch_size']}")
+        while True:
+            for batch in loader.epoch():
+                if not shms:
+                    spec = [(k, v.shape, str(v.dtype))
+                            for k, v in batch.items()]
+                    nbytes = sum(int(np.prod(s)) * np.dtype(d).itemsize
+                                 for _, s, d in spec)
+                    for _ in range(n_slots):
+                        shm = shared_memory.SharedMemory(
+                            create=True, size=max(nbytes, 1))
+                        shms.append(shm)
+                        views.append(_slot_views(shm.buf, spec))
+                    full_q.put(("spec", spec, [m.name for m in shms]))
+                slot = free_q.get()
+                if slot is None:
+                    return
+                for k, v in batch.items():
+                    views[slot][k][...] = v
+                full_q.put(("batch", slot))
+    except (KeyboardInterrupt, BrokenPipeError, EOFError):
+        pass
+    except Exception as e:  # surface it in the parent, do not hang it
+        full_q.put(("error", f"{type(e).__name__}: {e}"))
+    finally:
+        views.clear()
+        for shm in shms:
+            shm.close()
+            shm.unlink()
+
+
+class ProcessTrainLoader:
+    """A TrainLoader run in a child process, its batches passed through
+    shared memory (the port of dgod_tpu/data/loader.py's).
+
+    The same iteration contract as TrainLoader: `epoch()` and
+    `steps_per_epoch()`, a reshuffle every epoch, the dg duplicate batches,
+    `resample_replay`, and a mesh rank's `rows=(start, stop)` block; the
+    batches are TrainLoader's, bit for bit. The reference gets this
+    isolation from its multiprocess DataLoader workers (DGcommon.py:151).
+
+    Why a process: the training thread issues every kernel launch, and the
+    loader threads' Python work (collation, the transforms' numpy glue)
+    takes the GIL from it; in a child that work holds another
+    interpreter's lock. The child is spawned with CUDA_VISIBLE_DEVICES=""
+    so it never creates a CUDA context (~0.5 GB of the card each). With
+    `pin_memory` the parent copies each slot straight into page-locked
+    memory, from which `device_prefetch` copies to the card without a
+    second host copy. A child that dies or reports an error raises
+    RuntimeError in the parent within POLL_S seconds.
+    """
+
+    _T_OVERRIDE_KEYS = ("CANVAS", "TRAIN_SIZE", "MIN_SIZE", "MAX_SIZE",
+                        "MIN_AREA", "MAX_GT")
+
+    def __init__(self, dataset, batch_size: int, dg: bool, seed: int = 42,
+                 num_workers: int = 8, max_gt: Optional[int] = None,
+                 n_slots: int = 4, resample_replay: bool = False,
+                 rows: Optional[tuple] = None, pin_memory: bool = False):
+        self.dataset = dataset
+        self.batch_size = batch_size
+        self._kwargs = dict(
+            batch_size=batch_size, dg=dg, seed=seed, num_workers=num_workers,
+            max_gt=T.MAX_GT if max_gt is None else max_gt,
+            resample_replay=resample_replay, rows=rows)
+        self.n_slots = n_slots
+        self.pin_memory = pin_memory
+        self._proc = None
+        self._shms: list = []
+        self._views: list = []
+
+    def _set_before_start(self, key, value):
+        if self._proc is not None:
+            raise RuntimeError(f"cannot change {key} after the loader "
+                               "started")
+        self._kwargs[key] = value
+
+    # the harness turns dg off under fused pairs, and sets a mesh rank's
+    # rows, before the first epoch: both must reach the child
+    dg = property(lambda self: self._kwargs["dg"],
+                  lambda self, v: self._set_before_start("dg", v))
+    rows = property(lambda self: self._kwargs["rows"],
+                    lambda self, v: self._set_before_start("rows", v))
+
+    def steps_per_epoch(self) -> int:
+        n = len(self.dataset) // self.batch_size
+        return n * 2 if self.dg else n
+
+    def _get_msg(self):
+        """The child's next message; RuntimeError if it reported an error or
+        died (polled every POLL_S seconds, never a wait forever)."""
+        while True:
+            try:
+                msg = self._full_q.get(timeout=POLL_S)
+            except queue_mod.Empty:
+                if not self._proc.is_alive():
+                    raise RuntimeError(
+                        "loader child process died (exitcode "
+                        f"{self._proc.exitcode})") from None
+                continue
+            if msg[0] == "error":
+                raise RuntimeError(f"loader child process failed: {msg[1]}")
+            return msg
+
+    def _start(self):
+        import multiprocessing as mp
+        from multiprocessing import shared_memory
+
+        ctx = mp.get_context("spawn")
+        self._full_q = ctx.Queue()
+        self._free_q = ctx.Queue()
+        overrides = {k: getattr(T, k) for k in self._T_OVERRIDE_KEYS}
+        self._proc = ctx.Process(
+            target=_loader_proc_main,
+            args=(self.dataset, self._kwargs, overrides, self.n_slots,
+                  self._full_q, self._free_q),
+            daemon=True)
+        # the child sees no card, so nothing in it can create a CUDA
+        # context; the environment is the parent's for a few ms, under a
+        # lock that serialises concurrent starts
+        with _SPAWN_ENV_LOCK:
+            saved = os.environ.get("CUDA_VISIBLE_DEVICES")
+            os.environ["CUDA_VISIBLE_DEVICES"] = ""
+            try:
+                self._proc.start()
+            finally:
+                if saved is None:
+                    del os.environ["CUDA_VISIBLE_DEVICES"]
+                else:
+                    os.environ["CUDA_VISIBLE_DEVICES"] = saved
+        kind, spec, names = self._get_msg()
+        if kind != "spec":
+            raise RuntimeError(f"loader child process sent {kind!r} first")
+        self._spec = spec
+        for name in names:
+            shm = shared_memory.SharedMemory(name=name)
+            self._shms.append(shm)
+            self._views.append(_slot_views(shm.buf, spec))
+        for slot in range(self.n_slots):
+            self._free_q.put(slot)
+
+    def _copy_out(self, views) -> dict:
+        """A slot's batch, copied so the slot can go back to the child
+        before the (asynchronous) copy to the card ends."""
+        if not self.pin_memory:
+            return {k: v.copy() for k, v in views.items()}
+        import torch
+
+        out = {}
+        for k, v in views.items():
+            dtype = torch.from_numpy(v[:0]).dtype
+            out[k] = torch.empty(v.shape, dtype=dtype,
+                                 pin_memory=True).numpy()
+            np.copyto(out[k], v)
+        return out
+
+    def epoch(self) -> Iterator[dict]:
+        if self._proc is None:
+            self._start()
+        for _ in range(self.steps_per_epoch()):
+            kind, slot = self._get_msg()
+            if kind != "batch":
+                raise RuntimeError(f"loader child process sent {kind!r}")
+            out = self._copy_out(self._views[slot])
+            self._free_q.put(slot)
+            yield out
+
+    def close(self):
+        """Stop the child (asking first, then terminating it) and release
+        the shared memory; the loader can start again after."""
+        if self._proc is not None:
+            try:
+                self._free_q.put(None)
+            except (ValueError, OSError):  # the queue is closed already
+                pass
+            self._proc.join(timeout=2)
+            if self._proc.is_alive():
+                self._proc.terminate()
+                self._proc.join(timeout=5)
+            if self._proc.is_alive():
+                self._proc.kill()
+                self._proc.join(timeout=5)
+            for q in (self._full_q, self._free_q):
+                q.cancel_join_thread()
+                q.close()
+            self._proc = None
+        self._views = []
+        for shm in self._shms:
+            shm.close()
+            try:  # a child that was terminated did not unlink its slots
+                shm.unlink()
+            except FileNotFoundError:
+                pass
+        self._shms = []
+
+    def __del__(self):
+        try:
+            self.close()
+        except Exception:
+            pass
 
 
 class EvalLoader:

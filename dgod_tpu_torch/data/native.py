@@ -1,12 +1,17 @@
-"""The fused resize + flip + pad of one image onto the static canvas (the
-port's own copy of dgod_tpu/data/native.py's image prep).
+"""The host libraries of the data path, in C++ (the port's own copy of
+dgod_tpu/data/native.py's image prep, and its image decode).
 
-Two implementations that agree to +/-1 LSB (tests/test_torch_data.py):
-OpenCV's resize where cv2 imports (faster: SIMD), else the C++ prep in
-`csrc/host/image_prep.cpp`, compiled with g++ at first use into the
-gitignored `_build/` directory (keyed by a hash of the source and flags)
-and bound with ctypes. On a host without cv2 the C++ prep is the only
-path: a failed build raises.
+- `csrc/host/image_prep.cpp`: the fused resize + flip + pad of one image
+  onto the static canvas. It and OpenCV's resize agree to +/-1 LSB
+  (tests/test_torch_data.py); OpenCV runs where cv2 imports (faster: SIMD),
+  the C++ prep otherwise.
+- `csrc/host/image_decode.cpp`: the PNG row unfilter and a baseline JPEG
+  decoder (data/png.py, data/jpeg.py), used where cv2 does not import.
+
+Each is compiled with g++ at first use into the gitignored `_build/`
+directory (keyed by a hash of the source and flags) and bound with ctypes,
+which releases the GIL during a call. A failed build raises: nothing falls
+back to a slower path.
 """
 
 from __future__ import annotations
@@ -18,52 +23,80 @@ import subprocess
 import tempfile
 import threading
 from pathlib import Path
-from typing import Optional
+from typing import Callable, Optional
 
 import numpy as np
 
 PKG = Path(__file__).resolve().parents[1]
-SRC = PKG / "csrc" / "host" / "image_prep.cpp"
 BUILD_DIR = PKG / "_build"
 GXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
 
-_lock = threading.Lock()
-_lib: Optional[ctypes.CDLL] = None
+
+class HostLibrary:
+    """One C++ source of `csrc/host/`, built at first use and loaded once;
+    `declare` sets the ctypes signatures of its functions."""
+
+    def __init__(self, name: str, declare: Callable[[ctypes.CDLL], None]):
+        self.src = PKG / "csrc" / "host" / f"{name}.cpp"
+        self.name = name
+        self._declare = declare
+        self._lock = threading.Lock()
+        self._lib: Optional[ctypes.CDLL] = None
+
+    def path(self) -> Path:
+        digest = hashlib.sha256(self.src.read_bytes()
+                                + " ".join(GXX_FLAGS).encode())
+        return BUILD_DIR / f"{self.name}-{digest.hexdigest()[:16]}.so"
+
+    def _build(self, lib: Path) -> None:
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        proc = subprocess.run(["g++", *GXX_FLAGS, str(self.src), "-o", tmp],
+                              capture_output=True, text=True, timeout=240)
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            raise RuntimeError(f"g++ failed for {self.src}:\n{proc.stderr}")
+        os.replace(tmp, lib)  # atomic: a reader never sees half a file
+
+    def get(self) -> ctypes.CDLL:
+        """The loaded library, building it if needed (raises on failure)."""
+        with self._lock:
+            if self._lib is None:
+                path = self.path()
+                if not path.exists():
+                    self._build(path)
+                lib = ctypes.CDLL(str(path))
+                self._declare(lib)
+                self._lib = lib
+            return self._lib
 
 
-def library_path() -> Path:
-    digest = hashlib.sha256(SRC.read_bytes() + " ".join(GXX_FLAGS).encode())
-    return BUILD_DIR / f"image_prep-{digest.hexdigest()[:16]}.so"
+def _declare_prep(lib: ctypes.CDLL) -> None:
+    lib.dgod_prepare_image.argtypes = [
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int]
+    lib.dgod_prepare_image.restype = None
 
 
-def _build(lib: Path) -> None:
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    proc = subprocess.run(["g++", *GXX_FLAGS, str(SRC), "-o", tmp],
-                          capture_output=True, text=True, timeout=240)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"g++ failed for {SRC}:\n{proc.stderr}")
-    os.replace(tmp, lib)  # atomic: a reader never sees half a file
+def _declare_decode(lib: ctypes.CDLL) -> None:
+    lib.dgod_png_unfilter.argtypes = [
+        ctypes.c_char_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int,
+        ctypes.c_void_p]
+    lib.dgod_png_unfilter.restype = ctypes.c_int64
+    lib.dgod_jpeg_size.argtypes = [
+        ctypes.c_char_p, ctypes.c_int64, ctypes.POINTER(ctypes.c_int),
+        ctypes.POINTER(ctypes.c_int), ctypes.c_char_p, ctypes.c_int]
+    lib.dgod_jpeg_size.restype = ctypes.c_int
+    lib.dgod_jpeg_decode.argtypes = [
+        ctypes.c_char_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_int, ctypes.c_char_p, ctypes.c_int]
+    lib.dgod_jpeg_decode.restype = ctypes.c_int
 
 
-def get_lib() -> ctypes.CDLL:
-    """The built C++ prep, building it if needed (raises on failure)."""
-    global _lib
-    with _lock:
-        if _lib is None:
-            path = library_path()
-            if not path.exists():
-                _build(path)
-            lib = ctypes.CDLL(str(path))
-            lib.dgod_prepare_image.argtypes = [
-                ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                ctypes.c_int, ctypes.c_int, ctypes.c_int]
-            lib.dgod_prepare_image.restype = None
-            _lib = lib
-        return _lib
+IMAGE_PREP = HostLibrary("image_prep", _declare_prep)
+IMAGE_DECODE = HostLibrary("image_decode", _declare_decode)
 
 
 def _check(src: np.ndarray, canvas_hw, resized_hw) -> None:
@@ -85,8 +118,9 @@ def prepare_image_native(src: np.ndarray, canvas_hw, resized_hw,
     ch, cw = canvas_hw
     rh, rw = resized_hw
     out = np.empty((ch, cw, 3), np.uint8)
-    get_lib().dgod_prepare_image(src.ctypes.data, src.shape[0], src.shape[1],
-                                 out.ctypes.data, ch, cw, rh, rw, int(flip))
+    IMAGE_PREP.get().dgod_prepare_image(
+        src.ctypes.data, src.shape[0], src.shape[1], out.ctypes.data, ch, cw,
+        rh, rw, int(flip))
     return out
 
 

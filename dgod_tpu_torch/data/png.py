@@ -1,13 +1,15 @@
-"""A small PNG reader and writer (stdlib zlib + numpy), for hosts without
-OpenCV.
+"""A small PNG reader and writer (stdlib zlib + numpy + the C++ unfilter),
+for hosts without OpenCV.
 
 `read_png` decodes 8-bit RGB and RGBA, non-interlaced PNGs into an RGB
 uint8 array (alpha dropped, as `cv2.imread` with its default flag drops
-it); any other PNG raises, naming cv2 as the decoder that reads it. The
-filters None, Sub and Up are undone with whole-row numpy operations;
-Average and Paeth depend on the byte to their left, so their rows are
-undone byte by byte. `write_png` writes an RGB uint8 array with filter
-None on every row.
+it); any other PNG raises, naming cv2 as the decoder that reads it. zlib
+inflates the image data (it releases the GIL) and
+`csrc/host/image_decode.cpp` undoes the five row filters in one pass
+(`data/native.py` builds it; a failed build raises). `decode_png_plain`
+undoes them in numpy and Python, byte by byte for Average and Paeth: the
+plain version the tests hold the C++ one to. `write_png` writes an RGB
+uint8 array with filter None on every row.
 """
 
 from __future__ import annotations
@@ -16,6 +18,8 @@ import struct
 import zlib
 
 import numpy as np
+
+from . import native
 
 SIGNATURE = b"\x89PNG\r\n\x1a\n"
 _CHANNELS = {2: 3, 6: 4}  # colour type -> channels (RGB, RGBA)
@@ -60,8 +64,9 @@ def _unfilter_row_sequential(kind: int, row: bytearray, prev: bytes,
         row[i] = (row[i] + pred) & 0xFF
 
 
-def decode_png(data: bytes, path="<bytes>") -> np.ndarray:
-    """PNG bytes -> RGB uint8 [H, W, 3]."""
+def _inflate(data: bytes, path):
+    """PNG bytes -> (height, width, bytes per pixel, the inflated rows:
+    `height` rows of 1 + width * bpp bytes, filter type first)."""
     if data[:len(SIGNATURE)] != SIGNATURE:
         raise _unsupported(path, "not a PNG file")
     header, idat = None, []
@@ -78,11 +83,33 @@ def decode_png(data: bytes, path="<bytes>") -> np.ndarray:
                                  f"interlace {interlace}")
     bpp = _CHANNELS[colour]
     stride = width * bpp
-    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
-    if raw.size != height * (stride + 1):
-        raise ValueError(f"{path}: PNG image data has {raw.size} bytes, "
+    try:  # one output buffer of the known size: no growth, no join
+        raw = zlib.decompress(b"".join(idat), bufsize=height * (stride + 1))
+    except zlib.error as e:
+        raise ValueError(f"{path}: corrupt PNG image data ({e})") from e
+    if len(raw) != height * (stride + 1):
+        raise ValueError(f"{path}: PNG image data has {len(raw)} bytes, "
                          f"expected {height * (stride + 1)}")
-    rows = raw.reshape(height, stride + 1)
+    return height, width, bpp, raw
+
+
+def decode_png(data: bytes, path="<bytes>") -> np.ndarray:
+    """PNG bytes -> RGB uint8 [H, W, 3], unfiltered by the C++ library."""
+    height, width, bpp, raw = _inflate(data, path)
+    out = np.empty((height, width, 3), np.uint8)
+    bad = native.IMAGE_DECODE.get().dgod_png_unfilter(
+        raw, height, width, bpp, out.ctypes.data)
+    if bad:
+        raise ValueError(f"{path}: unknown PNG filter type "
+                         f"{raw[(bad - 1) * (width * bpp + 1)]}")
+    return out
+
+
+def decode_png_plain(data: bytes, path="<bytes>") -> np.ndarray:
+    """`decode_png` with the filters undone in numpy and Python."""
+    height, width, bpp, raw = _inflate(data, path)
+    stride = width * bpp
+    rows = np.frombuffer(raw, np.uint8).reshape(height, stride + 1)
     out = np.empty((height, stride), np.uint8)
     prev = np.zeros(stride, np.uint8)
     for y in range(height):

@@ -356,27 +356,33 @@ class Trainer:
         multihost.barrier()
 
     def fit(self):
-        for epoch in range(self.max_epochs):
-            train_stats = self.train_epoch()
-            val = self.validate()
-            val_acc = val["map_50"]
-            self.metrics.log(
-                "epoch", epoch,
-                {"val_acc": val_acc,
-                 "images_per_sec": train_stats["images_per_sec"],
-                 "lr_scale": self.plateau.scale},
-            )
-            self._print(f"epoch {epoch}: val mAP@0.5 {val_acc:.4f} "
-                        f"({train_stats['images_per_sec']:.2f} img/s) "
-                        f"per-class {val['map_per_class']}")
-            if val_acc > self.best_val:
-                self.best_val = val_acc
-                self._save_checkpoint(epoch, val_acc)
-            self.plateau.step(val_acc)
-            if self.early_stop.step(val_acc):
-                self._print(f"early stopping at epoch {epoch}")
-                break
-        self.store.wait()
+        try:
+            for epoch in range(self.max_epochs):
+                train_stats = self.train_epoch()
+                val = self.validate()
+                val_acc = val["map_50"]
+                self.metrics.log(
+                    "epoch", epoch,
+                    {"val_acc": val_acc,
+                     "images_per_sec": train_stats["images_per_sec"],
+                     "lr_scale": self.plateau.scale},
+                )
+                self._print(f"epoch {epoch}: val mAP@0.5 {val_acc:.4f} "
+                            f"({train_stats['images_per_sec']:.2f} img/s) "
+                            f"per-class {val['map_per_class']}")
+                if val_acc > self.best_val:
+                    self.best_val = val_acc
+                    self._save_checkpoint(epoch, val_acc)
+                self.plateau.step(val_acc)
+                if self.early_stop.step(val_acc):
+                    self._print(f"early stopping at epoch {epoch}")
+                    break
+            self.store.wait()
+        finally:
+            # a ProcessTrainLoader's child and its shared memory must not
+            # outlive the fit, even one that failed
+            if hasattr(self.train_loader, "close"):
+                self.train_loader.close()
         return self.best_val
 
     def test(self, test_loader) -> Dict[str, Any]:

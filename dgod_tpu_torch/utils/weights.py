@@ -288,6 +288,16 @@ def _walk(tree: Mapping, prefix=()):
             yield path, val
 
 
+def jax_leaf_key(path) -> str:
+    """A JAX parameter's path -> its state_dict key in the port."""
+    leaf, name = path[-1], ".".join(path[:-1])
+    if leaf == "kernel":
+        return f"{name}.weight"
+    if leaf == "bias" or leaf in BN_LEAVES:
+        return f"{name}.{leaf}"
+    raise KeyError(f"params_from_jax: unknown leaf {'/'.join(path)}")
+
+
 def params_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
     unknown_top = set(tree) - set(TOP_LEVEL)
     if unknown_top:
@@ -296,9 +306,8 @@ def params_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
     out = {}
     for path, val in _walk(tree):
         arr = np.array(val, dtype=np.float32)  # a writable copy
-        leaf = path[-1]
-        name = ".".join(path[:-1])
-        if leaf == "kernel":
+        key = jax_leaf_key(path)
+        if path[-1] == "kernel":
             if arr.ndim == 4:  # conv HWIO -> OIHW
                 arr = arr.transpose(3, 2, 0, 1)
             elif arr.ndim == 2:  # dense [in, out] -> [out, in]
@@ -308,13 +317,22 @@ def params_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
             else:
                 raise ValueError(f"params_from_jax: unexpected kernel shape "
                                  f"{arr.shape} at {'/'.join(path)}")
-            key = f"{name}.weight"
-        elif leaf == "bias" or leaf in BN_LEAVES:
-            key = f"{name}.{leaf}"
-        else:
-            raise KeyError(f"params_from_jax: unknown leaf {'/'.join(path)}")
         out[key] = torch.from_numpy(np.ascontiguousarray(arr))
     return out
+
+
+def opt_state_from_jax(tree: Mapping, names) -> Dict:
+    """A JAX package optimizer state (dgod_tpu/train/optim.py: {} under
+    SGD; Adam's `mu` and `nu` trees and a step count per leaf) -> the
+    port's (train/optim.py), for the parameters `names`: the moments
+    through `params_from_jax`, with its transposes, each count an int."""
+    if not tree:
+        return {}
+    mu, nu = params_from_jax(tree["mu"]), params_from_jax(tree["nu"])
+    count = {jax_leaf_key(path): int(np.asarray(v))
+             for path, v in _walk(tree["count"])}
+    return {"mu": {n: mu[n] for n in names}, "nu": {n: nu[n] for n in names},
+            "count": {n: count[n] for n in names}}
 
 
 def load_jax_params(model: torch.nn.Module, tree: Mapping) -> None:

@@ -11,9 +11,10 @@
 - `--torch_weights` warm-starts the CLI's model from a torchvision
   checkpoint (a synthesised COCO FCOS `.pth`, full depth, as the JAX
   tests/test_weights_e2e.py builds it);
-- `--process_loader` raises (not in the port yet), and `--mesh data=3`
-  on a one-rank world raises that it needs 3 devices (a mesh must hold
-  every rank; tests/test_torch_parallel.py runs `--mesh` on 2 ranks).
+- `--process_loader` trains and tests as the thread loader does (a child
+  process spawned), and `--mesh data=3` on a one-rank world raises that
+  it needs 3 devices (a mesh must hold every rank;
+  tests/test_torch_parallel.py runs `--mesh` on 2 ranks).
 """
 
 import os
@@ -199,8 +200,27 @@ def test_cli_torch_weights_warm_start(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("flag,error,match", [
     (["--mesh", "data=3"], ValueError, "needs 3 devices"),
-    (["--process_loader"], NotImplementedError, "ROADMAP Queue A")],
+    (["--process_loader"], None, None)],
     ids=["flag0", "flag1"])  # the cases' ids before --mesh was ported
-def test_flags_not_in_the_port_raise(flag, error, match):
-    with pytest.raises(error, match=match):
-        cli.main(flag, device="cpu")
+def test_flags_not_in_the_port_raise(tmp_path, small, flag, error, match):
+    """Flags that once raised here: `--mesh data=3` on a one-rank world
+    still raises; `--process_loader` now runs to its test result, the
+    thread loader's (the same batches, so the same training)."""
+    if error is not None:
+        with pytest.raises(error, match=match):
+            cli.main(flag, device="cpu")
+        return
+    root = str(tmp_path)
+    write_domains(root, [("a", "train"), ("b", "train"), ("a", "val"),
+                         ("b", "val"), ("i", "val")])
+    argv = ["--model", "FCOS", "--exp", "non_dg", "--source_domains", "AB",
+            "--target_domains", "I", "--batch_size", "4",
+            "--eval_batch_size", "4", "--data_root", root,
+            "--max_epochs", "1"]
+    results = [cli.main(argv + ["--weights_folder", os.path.join(root, w)]
+                        + extra, device="cpu")
+               for w, extra in (("p", flag), ("t", []))]
+    assert 0.0 <= results[0]["map_50"] <= 1.0
+    assert results[0]["map_50"] == results[1]["map_50"]
+    np.testing.assert_array_equal(results[0]["map_per_class"],
+                                  results[1]["map_per_class"])

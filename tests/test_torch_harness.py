@@ -3,10 +3,14 @@
 - `MeanAveragePrecision` equal to JAX's on seeded random detections;
 - `ReduceLROnPlateau` and `EarlyStopping` equal to JAX's over one metric
   sequence;
-- a checkpoint round trip is exact; other paths and files are refused;
+- a checkpoint round trip is exact; a torch file or a pickle of another
+  schema is refused (tests/test_torch_checkpoint.py loads the JAX
+  package's `.ckpt` and holds the directory store);
 - `Trainer.validate` on a small Faster R-CNN with JAX's weights gives the
   mAP@0.5 of JAX's predict and metric on the same batches, within 1e-6.
 """
+
+import pickle
 
 import numpy as np
 import jax
@@ -15,7 +19,6 @@ import torch
 
 from _torch_parity import build_pair
 from dgod_tpu.eval import MeanAveragePrecision as JaxMAP
-from dgod_tpu.train import checkpoint as j_checkpoint
 from dgod_tpu.train import optim as j_optim
 from dgod_tpu_torch.data import loader as t_loader
 from dgod_tpu_torch.data import transforms as T
@@ -94,13 +97,20 @@ def test_checkpoint_round_trip_is_exact(tmp_path):
 
 
 def test_checkpoint_store_refuses_what_it_cannot_read(tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A 14"):
-        make_store(str(tmp_path / "orbax_dir"))
-    path = str(tmp_path / "jax.ckpt")
-    j_checkpoint.PickleStore(path).save(
-        0, {"w": np.ones(3, np.float32)}, {}, {"val_acc": 0.5})
+    # a torch zip of another schema (a torchvision checkpoint, say)
+    path = str(tmp_path / "tv.ckpt")
+    torch.save({"state_dict": {"w": torch.ones(3)}}, path)
     with pytest.raises(ValueError, match="not a dgod_tpu_torch checkpoint"):
         CheckpointStore(path).load_latest()
+    # pickles of another schema, or of a class the JAX store never writes
+    for i, obj in enumerate([{"w": np.ones(3, np.float32)},
+                             {"params": b"", "opt_state": {}},
+                             {"params": np.ones(3)}]):
+        path = str(tmp_path / f"other{i}.ckpt")
+        with open(path, "wb") as f:
+            pickle.dump(obj, f)
+        with pytest.raises(ValueError, match="not a dgod_tpu_torch checkpoint"):
+            CheckpointStore(path).load_latest()
 
 
 class ListDataset:

@@ -3,13 +3,16 @@
 - `import dgod_tpu_torch` and every submodule leave jax, flax and dgod_tpu
   out of sys.modules, and build no kernel (a subprocess: this test process
   has JAX loaded by tests/conftest.py);
-- `dgod_tpu_torch.cli` imports with pandas, cv2 and jax absent, as on the
-  machine with the card (a subprocess that blocks them);
+- `dgod_tpu_torch.cli` and the data and checkpoint modules import with
+  pandas, cv2, jax, flax and msgpack absent, as on the machine with the
+  card (a subprocess that blocks them);
 - no file of the port, chip_smoke.py, train_driving_dg_torch.py,
   bench_torch.py, scripts/check_convergence_torch.py,
   scripts/compare_card_cpu_training.py, scripts/check_multigpu_torch.py,
   scripts/rank_launch.py or tests/_torch_ranks.py (what the gloo ranks of
-  the multi-GPU tests run) imports jax, flax or dgod_tpu (AST scan);
+  the multi-GPU tests run) imports jax, flax, msgpack, pandas or dgod_tpu
+  (AST scan; cv2 is imported only where it is installed, and the decode
+  that replaces it is tests/test_torch_image_decode.py's);
 - an entry point called without `device` on a host without CUDA raises
   instead of running on the CPU;
 - chip_smoke.py exits non-zero and prints no result without a card, and
@@ -35,7 +38,7 @@ from dgod_tpu_torch.models.dg_frcnn import DGFRCNNModel
 
 REPO = Path(__file__).resolve().parents[1]
 PKG = REPO / "dgod_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "dgod_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "msgpack", "pandas", "dgod_tpu")
 
 
 def _submodules():
@@ -56,8 +59,9 @@ def test_import_leaves_jax_and_dgod_tpu_out():
               "models.dg_fcos", "utils.weights", "utils.logging",
               "utils.flops", "utils.timing", "utils.synthetic", "cli",
               "eval.coco_map", "data.dataset", "data.png", "data.native",
-              "data.transforms", "data.loader", "train.harness",
-              "train.checkpoint", "parallel.multihost", "parallel.mesh",
+              "data.transforms", "data.loader", "data.jpeg",
+              "data.etl.convert", "train.harness", "train.checkpoint",
+              "train.flax_msgpack", "parallel.multihost", "parallel.mesh",
               "parallel.spmd", "parallel.tensor_parallel"):
         assert f"dgod_tpu_torch.{m}" in mods
     code = (
@@ -79,10 +83,12 @@ def test_import_leaves_jax_and_dgod_tpu_out():
 def test_cli_imports_without_pandas_cv2_or_jax():
     code = (
         "import sys\n"
-        "for name in ('pandas', 'cv2', 'jax', 'jaxlib', 'flax'):\n"
+        "for name in ('pandas', 'cv2', 'jax', 'jaxlib', 'flax', 'msgpack'):\n"
         "    sys.modules[name] = None  # any import of them raises\n"
         "import dgod_tpu_torch.cli as cli\n"
-        "from dgod_tpu_torch.data import dataset\n"
+        "from dgod_tpu_torch.data import dataset, jpeg, loader, png\n"
+        "from dgod_tpu_torch.data.etl import convert\n"
+        "from dgod_tpu_torch.train import checkpoint, flax_msgpack\n"
         "print(cli.parser_args([]).model)\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=_env(),
                          capture_output=True, text=True, timeout=120)

@@ -6,7 +6,11 @@ NVIDIA card — the same flags as train_driving_dg.py. Example:
       --source_domains ABC --target_domains I --weights_folder ABC2I \
       --weights_file abc2i_dgfrcnn --reg_weights 0.5 0.5 0.5 0.05 0.0001
 """
-from dgod_tpu_torch.cli import main
 
 if __name__ == "__main__":
+    # imported here, not at the top: a spawned loader child re-runs this
+    # file's top level, and the CLI's imports (torch, the models) would
+    # only slow its start
+    from dgod_tpu_torch.cli import main
+
     main()
