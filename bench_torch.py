@@ -35,18 +35,13 @@ import sys
 
 import torch
 
+from dgod_tpu_torch.utils import synthetic
+
 FAMILIES = ("FRCNN", "FCOS")
 NUM_DOMAINS = 3
-SIZES = {
-    "cuda": dict(canvas=(608, 1216), batch=8, blocks=(3, 4, 6, 3),
-                 dtype=torch.bfloat16, cycles=5),
-    # the FRCNN sampling sizes of the CPU tests (tests/test_flops.py)
-    "cpu": dict(canvas=(64, 128), batch=2, blocks=(1, 1, 1, 1),
-                dtype=torch.float32, cycles=1,
-                frcnn=dict(rpn_pre_nms_train=256, rpn_pre_nms_test=256,
-                           rpn_post_nms_train=256, rpn_post_nms_test=256,
-                           rpn_batch_per_image=64, box_batch_per_image=64)),
-}
+# the shared sizes of a card run and a CPU smoke run, and the cycles timed
+SIZES = {dev: dict(size, cycles=5 if dev == "cuda" else 1)
+         for dev, size in synthetic.SIZES.items()}
 
 
 def bench_family(family: str, dev: torch.device, size: dict) -> dict:
@@ -129,10 +124,7 @@ def main(argv=None) -> int:
         "block_counts": list(size["blocks"]),
         "dtype": str(size["dtype"]).replace("torch.", ""),
         "timed_cycles": size["cycles"],
-        "device": dev.type,
-        "card": timing.card(dev),
-        "kind": torch.cuda.get_device_name(dev) if dev.type == "cuda"
-        else "cpu",
+        **timing.describe(dev),
         "tf32": {"cudnn.allow_tf32": torch.backends.cudnn.allow_tf32,
                  "cuda.matmul.allow_tf32":
                  torch.backends.cuda.matmul.allow_tf32},

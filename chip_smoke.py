@@ -99,14 +99,29 @@ Phases, each of which fails the run (non-zero exit) on any fault:
    before it, and no older step is left); and load the calibrated
    full-width FRCNN written in the JAX package's .ckpt layout
    (`jax_ckpt_bytes`) through the CLI's warm start, every tensor and one
-   predict equal to the in-memory model's bit for bit.
+   predict equal to the in-memory model's bit for bit;
+13. the measurement entry points, run after phase 12 in short settings,
+   each with the kernels' counts from 0 around it and its launches those
+   of the pairs, mode steps, predicts and stage prefixes it reports, every
+   number it prints finite and positive (a stage's difference of two times
+   finite): scripts/bench_e2e_torch.py for FRCNN over phase 12's 1024x2048
+   PNGs (12 pairs, with threads and with --process_loader; occupancy at
+   most 1.05), scripts/bench_eval_torch.py for both families (batch 1 and
+   8, a 4-batch sweep whose mAP must equal a direct `Trainer.validate` on
+   the same batches, both under deterministic algorithms, and the stage
+   profile), scripts/bench_detail_torch.py for both (2 timed calls per
+   mode), scripts/roofline_backbone_torch.py (3 timed calls per stage;
+   every share and MFU at most 1.05, else a count is wrong), and one FRCNN
+   pair inside `utils/logging.profile_steps`, whose trace must name the
+   CUDA kernels of K1, K2, K3 and K5 (their symbols in csrc/roi_align.cu,
+   iou_match.cu and proposals.cu).
 
 Each family's main path also reports its second DG cycle's images/s and
 MFU (`utils.flops.train_mfu`, against the H100 SXM's dense bf16 peak).
 
 Output: one line per phase, then the card's name and power limit, then one
 JSON line {"kernels": [...]} (times, errors, bounds, and the launches of
-the two main paths, phases 4-7; phases 8-12 print theirs on lines of
+the two main paths, phases 4-7; phases 8-13 print theirs on lines of
 their own), and last
 {"ok": true, "device": {...}}. Without a CUDA device, or without the
 package beside it, the script exits non-zero and prints no result.
@@ -122,7 +137,6 @@ import struct
 import sys
 import tempfile
 import time
-import zlib
 
 import numpy as np
 
@@ -1578,6 +1592,7 @@ def write_cli_dataset(root: str) -> None:
     each, labels 1..8), domain b (BDD100K) as JPEGs, the BDD-sized
     fixtures with 2-8 random boxes each."""
     from dgod_tpu_torch.cli import DOMAIN_SPECS
+    from dgod_tpu_torch.utils.synthetic import png_filtered
 
     rng = np.random.RandomState(21)
     H, W = CLI_IMAGE
@@ -1748,52 +1763,7 @@ FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
 BDD_FIXTURES = ("bdd_720x1280.jpg", "bdd_720x1280_q90.jpg")
 DATA_PNG = (1024, 2048)  # Cityscapes' (and the loader check's a and c)
 DATA_PER_DOMAIN = 16
-
-
-def png_filtered(img: np.ndarray, kinds=(0, 1, 2, 3, 4)) -> bytes:
-    """RGB or RGBA uint8 [H, W, C] -> PNG bytes whose row y uses filter
-    kinds[y % len(kinds)] (0 None, 1 Sub, 2 Up, 3 Average, 4 Paeth), each
-    row filtered at once in numpy from the source bytes, as libpng does."""
-    from dgod_tpu_torch.data import png
-
-    h, w, c = img.shape
-    x = img.reshape(h, w * c).astype(np.int16)
-    a = np.zeros_like(x)  # left
-    a[:, c:] = x[:, :-c]
-    b = np.zeros_like(x)  # up
-    b[1:] = x[:-1]
-    ul = np.zeros_like(x)  # up-left
-    ul[1:, c:] = x[:-1, :-c]
-    p = a + b - ul
-    pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - ul)
-    paeth = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, ul))
-    preds = (np.zeros_like(x), a, b, (a + b) >> 1, paeth)
-    kind = np.asarray([kinds[y % len(kinds)] for y in range(h)], np.uint8)
-    rows = np.empty((h, 1 + w * c), np.uint8)
-    rows[:, 0] = kind
-    rows[:, 1:] = (x - np.choose(kind[:, None].astype(np.intp), preds)) & 255
-    colour = {3: 2, 4: 6}[c]
-    return (png.SIGNATURE
-            + png._chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, colour,
-                                              0, 0, 0))
-            + png._chunk(b"IDAT", zlib.compress(rows.tobytes(), 1))  # fast
-            + png._chunk(b"IEND", b""))
-
-
-def scene(rng: np.random.RandomState, hw) -> np.ndarray:
-    """A synthetic RGB road scene: a colour gradient, 2-8 flat boxes and
-    +-12 of noise, so the filters and the inflate see a photograph's
-    entropy."""
-    H, W = hw
-    c0, c1 = rng.randint(0, 256, (2, 3))
-    t = np.linspace(0.0, 1.0, W, dtype=np.float32)[None, :, None]
-    img = np.broadcast_to(c0 * (1 - t) + c1 * t, (H, W, 3)).astype(np.int16)
-    img = img + rng.randint(-12, 13, (H, W, 3)).astype(np.int16)
-    for _ in range(rng.randint(2, 9)):
-        h, w = rng.randint(H // 20, H // 3), rng.randint(W // 30, W // 4)
-        y, x = rng.randint(0, H - h), rng.randint(0, W - w)
-        img[y:y + h, x:x + w] = rng.randint(0, 256, 3)
-    return np.clip(img, 0, 255).astype(np.uint8)
+E2E_DATA = "e2e_png"  # the data phase's PNGs as bench_e2e_torch.py reads them
 
 
 def msgpack_pack(obj) -> bytes:
@@ -1938,15 +1908,17 @@ class deterministic:
         torch.use_deterministic_algorithms(self.saved[2])
 
 
-def check_decode(smi: str):
+def check_decode(smi: str, root: str):
     """Data phase 1-3: build the C++ decode; every fixture JPEG (written
     with cv2, tests/fixtures/jpeg) decodes to the sha256 of cv2.imread's
-    RGB recorded beside it; 1024x2048 PNGs using all five filters decode
-    to their source arrays; the decode times. -> {"png": the PNGs' bytes
-    and arrays}."""
+    RGB recorded beside it; 1024x2048 PNGs using all five filters
+    (`utils/synthetic.scene_pngs`, written into `root`/E2E_DATA as
+    scripts/bench_e2e_torch.py writes its dataset) decode to their source
+    arrays; the decode times. -> {"png": the PNGs' bytes and arrays}."""
     import hashlib
 
     from dgod_tpu_torch.data import jpeg, native, png
+    from dgod_tpu_torch.utils.synthetic import scene_pngs, write_png_dataset
     from dgod_tpu_torch.utils.timing import host_ms
 
     _, ms = host_ms(native.IMAGE_DECODE.get, "cpu")
@@ -1963,12 +1935,13 @@ def check_decode(smi: str):
           "odd sizes, restart intervals, grayscale, 720x1280) equal "
           "cv2.imread's recorded RGB hashes")
 
-    rng = np.random.RandomState(31)
-    arrays = [scene(rng, DATA_PNG) for _ in range(2 * DATA_PER_DOMAIN)]
-    files, t = [], time.perf_counter()
-    for i, img in enumerate(arrays):
-        files.append(png_filtered(img, kinds=np.roll((0, 1, 2, 3, 4), i)))
+    t = time.perf_counter()
+    made = list(scene_pngs(2 * DATA_PER_DOMAIN, DATA_PNG))
     encode_s = time.perf_counter() - t
+    arrays = [m[1] for m in made]
+    files = [m[2] for m in made]
+    write_png_dataset(os.path.join(root, E2E_DATA), len(made), DATA_PNG,
+                      made=made)
     t = time.perf_counter()
     for data, img in zip(files, arrays):
         if not np.array_equal(png.decode_png(data), img):
@@ -1993,7 +1966,8 @@ def check_decode(smi: str):
         fail("data: the Python unfilter disagrees with the source")
     print(f"data: {len(files)} PNGs of {DATA_PNG} (rows cycling filters 0-4,"
           f" zlib level 1, {sum(map(len, files)) / len(files) / 2**20:.2f} "
-          f"MiB each, encoded in {encode_s:.1f} s) decode to their sources")
+          f"MiB each, made and encoded in {encode_s:.1f} s) decode to their "
+          "sources")
     print(f"data: decode ms per image on the host (one thread; {smi}): C++ "
           f"PNG {DATA_PNG} {png_ms:.2f} (of which zlib's inflate "
           f"{inflate_ms:.2f}), C++ JPEG "
@@ -2259,7 +2233,7 @@ def run_data_phase(dev, root: str, smi: str, thread_cli):
     --process_loader against the thread loader's run of phase 8, the
     directory store, and a JAX package .ckpt through the CLI's warm
     start. -> the process-loader CLI run's launches."""
-    decoded = check_decode(smi)
+    decoded = check_decode(smi, root)
     run_loaders(root, decoded, smi)
     counts, img_s = run_cli_phase(dev, "FRCNN", root, ["--process_loader"])
     print(f"data: CLI FRCNN epoch {img_s:.2f} images/s with "
@@ -2268,6 +2242,212 @@ def run_data_phase(dev, root: str, smi: str, thread_cli):
     run_directory_store(dev, root)
     run_jax_ckpt(dev, root)
     return counts
+
+
+# -- phase 13: the measurement entry points ----------------------------------
+
+# what each counted call of a measurement script launches (counts in
+# `calls`): a mode step alone (`mode_launches`), a pair (0,k)
+# (`expected_launches`), a predict, and each prefix of the eval script's
+# stage profile
+STAGE_KERNELS = {"backbone+FPN": (), "+RPN heads": (),
+                 "+proposal decode/NMS (K5)": ("K5",),
+                 "+RoIAlign (K1)": ("K5", "K1"), "+box head": ("K5", "K1"),
+                 "forward": ()}
+# symbols of K1, K2, K3 and K5 in csrc/roi_align.cu, iou_match.cu and
+# proposals.cu, as a profiler's trace names their launches
+TRACE_SYMBOLS = {"K1": ("fwd_kernel",),
+                 "K2": ("bwd_geometry_kernel", "bwd_gather_kernel"),
+                 "K3": ("best_kernel", "match_kernel"),
+                 "K5": ("decode_kernel", "mask_kernel", "scan_kernel")}
+
+
+def mode_launches(family: str, mode: int):
+    """Kernel launches of an unfused step of DG `mode` (the CLI's
+    --reference_quirks path): FRCNN's mode 0 matches the RPN (K3); every
+    mode pools (K1) the proposals (K5), and all but mode 2, whose detector
+    is frozen, backpropagate into the FPN (K2). FCOS matches (K4) in every
+    mode but 1, which reads no gt classes."""
+    want = dict.fromkeys(("K1", "K2", "K3", "K4", "K5", "K6"), 0)
+    if family == "FRCNN":
+        want.update(K1=1, K2=0 if mode == 2 else 1,
+                    K3=1 if mode == 0 else 0, K5=1)
+    else:
+        want.update(K4=0 if mode == 1 else 1)
+    return want
+
+
+def launches_of(family: str, calls) -> dict:
+    """The launches a measurement script's `calls` must have made."""
+    want = dict.fromkeys(("K1", "K2", "K3", "K4", "K5", "K6"), 0)
+    for name, n in calls.items():
+        if name == "predict" or name == "+postprocess (K6)":
+            per = expected_launches(family)
+        elif name.startswith("pair"):
+            per = expected_launches(family, int(name[4:]))
+        elif name.startswith("mode"):
+            per = mode_launches(family, int(name[4:]))
+        else:
+            per = {k: 1 for k in STAGE_KERNELS[name]}
+        for k, v in per.items():
+            want[k] += n * v
+    return want
+
+
+def check_numbers(label: str, obj, path="") -> None:
+    """Every number in a script's result finite, and positive but for a
+    stage's difference of two times, the sweep's mAP (in [0, 1]), the
+    losses and the decode cache's size (0: none); `None` stands where the
+    script gives no number (a frozen stage's backward)."""
+    if isinstance(obj, dict):
+        for k, v in obj.items():
+            check_numbers(label, v, f"{path}.{k}")
+        return
+    if isinstance(obj, list):
+        for i, v in enumerate(obj):
+            check_numbers(label, v, f"{path}[{i}]")
+        return
+    if isinstance(obj, bool) or not isinstance(obj, (int, float)):
+        return
+    if not np.isfinite(obj):
+        fail(f"{label}: {path} is {obj}")
+    key = path.rsplit(".", 1)[-1]
+    if key == "sweep_map_50":
+        if not 0.0 <= obj <= 1.0:
+            fail(f"{label}: {path} = {obj} is not in [0, 1]")
+    elif (key not in ("stage_ms", "decode_cache_gb")
+          and ".losses." not in path and obj <= 0):
+        fail(f"{label}: {path} = {obj} is not positive")
+
+
+def measured(label: str, family, fn):
+    """`fn()` (a measurement script's run) with the kernels' counts from 0
+    around it: its launches must be those of the calls it reports (per
+    family, or, where the result has no `families`, of `family`), and its
+    numbers pass `check_numbers`. Prints its result on a line of its own.
+    -> the result."""
+    torch.cuda.synchronize()
+    reset_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    got = read_counts()
+    want = dict.fromkeys(got, 0)
+    for fam, part in (out.get("families") or {family: out}).items():
+        for kid, n in launches_of(fam, part.get("calls", {})).items():
+            want[kid] += n
+    if got != want:
+        fail(f"{label}: the kernels launched {got} times, its calls launch "
+             f"{want}")
+    check_numbers(label, out)
+    print(f"measure {label}: {json.dumps(out)}")
+    return out
+
+
+def check_trace(path: str) -> dict:
+    """The CUDA kernels a `profile_steps` trace names, per port kernel of
+    TRACE_SYMBOLS. Fails unless each of K1, K2, K3 and K5 is there."""
+    import re
+
+    with open(path) as f:
+        events = json.load(f).get("traceEvents", [])
+    names = {e.get("name", "") for e in events if e.get("cat") == "kernel"}
+    found = {}
+    for kid, symbols in TRACE_SYMBOLS.items():
+        pat = re.compile(r"(?<![A-Za-z0-9_])(?:\d+)?(%s)\b"
+                         % "|".join(symbols))
+        found[kid] = sorted({m.group(1) for n in names
+                             for m in [pat.search(n)] if m})
+        if not found[kid]:
+            fail(f"profile_steps: the trace names no kernel of {kid} "
+                 f"({symbols}) among {len(names)} kernels")
+    return found
+
+
+def run_measure_phase(dev, root: str, smi: str) -> None:
+    """Phase 13: each measurement script's card mode in a short setting,
+    its kernels' launches counted from 0 around it and its numbers
+    checked (`measured`): the e2e for FRCNN over the data phase's 1024x2048
+    PNGs with threads and with the process loader, the eval of both
+    families (batch 1 and 8, a 4-batch sweep whose mAP must equal a direct
+    `Trainer.validate` of the same model on the same batches, both under
+    deterministic algorithms, and the stage profile), the unfused mode
+    steps of both, the roofline (every share and MFU at most 1.05); then
+    one FRCNN pair inside `profile_steps`, whose trace must name the CUDA
+    kernels of K1, K2, K3 and K5."""
+    from argparse import Namespace
+
+    from scripts import (bench_detail_torch, bench_e2e_torch,
+                         bench_eval_torch, roofline_backbone_torch)
+
+    from dgod_tpu_torch.utils import synthetic
+    from dgod_tpu_torch.utils.logging import profile_steps
+
+    t = time.perf_counter()
+    e2e = {}
+    for extra in ((), ("--process_loader",)):
+        args = bench_e2e_torch.parse_args(
+            ["--family", "FRCNN", "--steps", "12", "--images",
+             str(2 * DATA_PER_DOMAIN), "--data_dir",
+             os.path.join(root, E2E_DATA), *extra])
+        label = "e2e " + ("ProcessTrainLoader" if extra else "TrainLoader")
+        e2e[label] = out = measured(label, "FRCNN",
+                                    lambda: bench_e2e_torch.run(args, dev))
+        if out["dataset_write_s"] > 1.0:
+            fail(f"{label}: wrote its PNGs anew ({out['dataset_write_s']:.1f}"
+                 " s) instead of reading the data phase's")
+        if out["occupancy"] > 1.05:
+            fail(f"{label}: occupancy {out['occupancy']:.3f} > 1.05")
+        if out["images"] != 12 * 2 * B:
+            fail(f"{label}: {out['images']} images for 12 pairs of {B}")
+    ns = Namespace(family="both", iters=3, sweep_batches=4)
+    with deterministic():
+        ev = measured("eval", None, lambda: bench_eval_torch.run(ns, dev))
+        size = synthetic.SIZES["cuda"]
+        for family, part in ev["families"].items():
+            model, _ = synthetic.sized_model(family, dev, size)
+            with tempfile.TemporaryDirectory() as sub:
+                batches = bench_eval_torch.eval_batches(
+                    ns.sweep_batches, size["batch"], size["canvas"])
+                direct = bench_eval_torch.make_trainer(
+                    model, batches, dev, sub).validate()["map_50"]
+            if direct != part["sweep_map_50"]:
+                fail(f"eval {family}: the sweep's mAP "
+                     f"{part['sweep_map_50']} != a direct Trainer.validate's"
+                     f" {direct}")
+            print(f"eval {family}: the sweep's mAP {direct} equals a direct "
+                  "Trainer.validate on the same batches (deterministic)")
+            del model
+    measured("detail", None, lambda: bench_detail_torch.run(
+        Namespace(family="both", iters=2), dev))
+    roof = measured("roofline", None, lambda: roofline_backbone_torch.run(
+        Namespace(family="both", iters=3), dev))
+    for row in roof["stages"]:
+        for key in ("share", "fwd_bwd_mfu"):
+            if row[key] is not None and row[key] > 1.05:
+                fail(f"roofline {row['name']}: {key} {row[key]:.3f} > 1.05 "
+                     "(a wrong count)")
+
+    cycle = synthetic.build_dg_cycle("FRCNN", dev, canvas=CANVAS, batch=B)
+    synthetic.run_dg_cycle(cycle)  # warm-up
+    torch.cuda.synchronize()
+    reset_counts()
+    with profile_steps(os.path.join(root, "profile")) as trace:
+        k, step = next(iter(cycle.steps.items()))
+        batch = cycle.batches[0]
+        g = batch["boxes"].shape[1]
+        cycle.opt_state, _ = step(
+            cycle.opt_state, batch,
+            cycle.model.make_draws(B, g, cycle.gen, with_rpn=True),
+            cycle.model.make_draws(B, g, cycle.gen, with_rpn=False))
+    if read_counts() != expected_launches("FRCNN", k):
+        fail(f"profile_steps: pair (0,{k}) launched {read_counts()}, "
+             f"expected {expected_launches('FRCNN', k)}")
+    found = check_trace(trace)
+    print(f"profile_steps: FRCNN pair (0,{k}) traced into "
+          f"{os.path.getsize(trace) / 2**20:.1f} MiB; the trace names "
+          f"{json.dumps(found)}")
+    del cycle
+    print(f"measure phase: {time.perf_counter() - t:.1f} s ({smi})")
 
 
 def main() -> int:
@@ -2354,6 +2534,7 @@ def main() -> int:
         data_counts = run_data_phase(dev, root, smi, cli_img_s["FRCNN"])
         print(f"CLI FRCNN --process_loader launches: {data_counts}; data "
               f"phase {time.perf_counter() - t:.1f} s")
+        run_measure_phase(dev, root, smi)
         for family in ("FCOS", "FRCNN"):
             print(f"learn {family} launches: "
                   f"{run_learn_phase(dev, family, root)}")

@@ -29,6 +29,8 @@ from __future__ import annotations
 from typing import Dict, Tuple
 
 H100_SXM_BF16_PEAK_FLOPS = 989.4e12
+# the H100 SXM's HBM3 rate (same datasheet), the memory side of a bound
+H100_SXM_HBM_BYTES_PER_S = 3.35e12
 
 
 def _ceil_div(a: int, b: int) -> int:

@@ -8,6 +8,10 @@ logger (PL default, train_driving_dg.py:163) with an analysis-friendly
 format. Pass tb_dir (or set DGOD_TB_DIR) to also emit TensorBoard scalars,
 so reference users keep their dashboards; without the tensorboard package
 the mirror is off with a warning and the JSONL log continues.
+
+`profile_steps` records the steps it encloses with torch.profiler and
+writes one Chrome/Perfetto trace (the port of the JAX package's
+`profile_steps`, which records a device trace with jax.profiler).
 """
 
 from __future__ import annotations
@@ -16,6 +20,7 @@ import json
 import os
 import sys
 import time
+from contextlib import contextmanager
 from typing import Any, Dict, Optional
 
 
@@ -72,3 +77,30 @@ class MetricsLogger:
         if self._tb:
             self._tb.close()
             self._tb = None
+
+
+@contextmanager
+def profile_steps(log_dir: str):
+    """Record the enclosed steps with torch.profiler, on the host (CPU
+    activity) and, where a card is there, on the card (CUDA activity), and
+    write one Chrome/Perfetto trace into `log_dir`. Yields the trace's
+    path; the file is written when the block ends (the card's queued work
+    is waited for first, so its kernels are in the trace)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    os.makedirs(log_dir, exist_ok=True)
+    path = os.path.join(
+        log_dir, f"trace-{time.strftime('%Y%m%d-%H%M%S')}-{os.getpid()}"
+                 f"-{time.perf_counter_ns()}.json")
+    cuda = torch.cuda.is_available()
+    activities = [ProfilerActivity.CPU]
+    if cuda:
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities) as prof:
+        try:
+            yield path
+        finally:
+            if cuda:
+                torch.cuda.synchronize()
+    prof.export_chrome_trace(path)

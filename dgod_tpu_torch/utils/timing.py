@@ -93,3 +93,12 @@ def card(device) -> str:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()
     return lines[dev.index or 0]
+
+
+def describe(device) -> dict:
+    """What a result line says of the device it ran on: its type, the
+    card's name and power limit (`card`) and torch's name of it."""
+    dev = _device(device)
+    return {"device": dev.type, "card": card(dev),
+            "kind": (torch.cuda.get_device_name(dev) if dev.type == "cuda"
+                     else "cpu")}

@@ -5,7 +5,8 @@ images with:
 - the C++ PNG unfilter equals the Python unfilter (`decode_png_plain`) and
   `cv2.imread` on PNGs whose rows use each of the five filters, RGB and
   RGBA, at sizes from one pixel up (hypothesis), PNGs made by
-  chip_smoke.py's filtering encoder;
+  the filtering encoder chip_smoke.py and the e2e bench write with
+  (`utils/synthetic.png_filtered`);
 - the C++ JPEG decode equals `cv2.imread` exactly on JPEGs cv2 writes here
   at each sampling factor, with and without restart intervals, grayscale,
   odd and tiny sizes (hypothesis), on files of one scan per component
@@ -30,8 +31,8 @@ import pytest
 from hypothesis import given, settings
 from hypothesis import strategies as st
 
-import chip_smoke
 from dgod_tpu_torch.data import dataset, jpeg, native, png
+from dgod_tpu_torch.utils.synthetic import png_filtered
 
 FIXTURES = Path(__file__).resolve().parent / "fixtures" / "jpeg"
 SAMPLING = {"420": cv2.IMWRITE_JPEG_SAMPLING_FACTOR_420,
@@ -57,7 +58,7 @@ def _image(rng, h, w, c):
        seed=st.integers(0, 2**31 - 1))
 def test_png_unfilter_matches_python_and_cv2(h, w, c, kinds, seed):
     img = _image(np.random.RandomState(seed), h, w, c)
-    data = chip_smoke.png_filtered(img, kinds)
+    data = png_filtered(img, kinds)
     got = png.decode_png(data)
     np.testing.assert_array_equal(got, img[..., :3])
     np.testing.assert_array_equal(got, png.decode_png_plain(data))
@@ -259,7 +260,7 @@ def test_what_the_readers_do_not_take_raises(tmp_path):
 def test_load_rgb_without_cv2_reads_by_signature(tmp_path, monkeypatch):
     img = cv2.GaussianBlur(_image(np.random.RandomState(1), 30, 50, 3),
                            (3, 3), 0)
-    (tmp_path / "x.png").write_bytes(chip_smoke.png_filtered(img))
+    (tmp_path / "x.png").write_bytes(png_filtered(img))
     (tmp_path / "y.jpg").write_bytes(_cv2_jpeg(img, "422", 90, 0))
     assert cv2.imwrite(str(tmp_path / "z.bmp"), img)
     refs = {n: dataset.load_rgb(str(tmp_path / n)) for n in ("x.png", "y.jpg")}

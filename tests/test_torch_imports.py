@@ -114,6 +114,10 @@ def _imported_roots(path: Path):
         REPO / "scripts" / "compare_card_cpu_training.py",
         REPO / "scripts" / "check_multigpu_torch.py",
         REPO / "scripts" / "rank_launch.py",
+        REPO / "scripts" / "bench_detail_torch.py",
+        REPO / "scripts" / "bench_eval_torch.py",
+        REPO / "scripts" / "bench_e2e_torch.py",
+        REPO / "scripts" / "roofline_backbone_torch.py",
         REPO / "tests" / "_torch_ranks.py"]))
 def test_no_file_of_the_port_imports_jax(path):
     roots = set(_imported_roots(REPO / path))
