@@ -1,0 +1,9 @@
+"""Device ms per DG cycle in the convolution and GEMM kernels (frozen
+CATEGORIES) of the profiled cycles."""
+
+from perfbench.bench import readers
+
+
+def read(ctx):
+    s = ctx.profile.category_s().get(ctx.kernels.CONV_GEMM)
+    return readers.per_unit_ms(ctx, s) if s else None

@@ -1,0 +1,6 @@
+"""1 - the union of device intervals over the wall span of the profiled DG
+cycles, in %."""
+
+
+def read(ctx):
+    return 100.0 * ctx.profile.idle_share if ctx.path == "train" else None

@@ -1,0 +1,162 @@
+"""Train / eval steps, one per DG mode (port of dgod_tpu/train/steps.py).
+
+A step mutates the model's parameters in place and returns the optimizer
+state and the metrics (detached tensors: reading them is the caller's
+choice, and the only host sync a step asks for is inside NMS).
+
+Per mode, only the groups in MODE_ACTIVE_GROUPS take part:
+`stop_inactive_grads` turns `requires_grad` off for every other parameter
+(so autograd computes no gradient for it, the frozen backward included) and
+`apply_updates` touches only the active ones. `ModeScheduler` reproduces
+the reference's mode/sub-mode machine: in 'dg' the steps over replayed
+batches run 0,1,0,2,0,3,0,4; the fused pair step runs mode 0 then mode k
+on the same batch, and computes once what both halves take from the batch
+alone (`model.pair_targets`: FCOS's matcher codes, one K4 launch per pair).
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Sequence
+
+import torch
+
+from .optim import OptConfig, apply_updates
+
+MODE_ACTIVE_GROUPS = {
+    0: ("detector",),
+    1: ("detector", "image_da", "ins_da"),
+    2: ("ins_cls",),
+    3: ("detector", "ins_cls_prime"),
+    4: ("detector",),
+}
+
+
+class ModeScheduler:
+    """Host-side replica of the reference mode/sub_mode machine."""
+
+    def __init__(self, dg: bool):
+        self.dg = dg
+        self._cycle = (0, 1, 0, 2, 0, 3, 0, 4)
+        self._i = 0
+
+    def next_mode(self) -> int:
+        if not self.dg:
+            return 0
+        mode = self._cycle[self._i]
+        self._i = (self._i + 1) % len(self._cycle)
+        return mode
+
+    def reset(self):
+        self._i = 0
+
+
+def build_active_mask(labels: Dict[str, str], mode: int) -> Dict[str, bool]:
+    active_groups = MODE_ACTIVE_GROUPS[mode]
+    return {n: lbl in active_groups for n, lbl in labels.items()}
+
+
+def stop_inactive_grads(model: torch.nn.Module, active: Dict[str, bool]):
+    """requires_grad only on the mode's active parameters (the port of
+    `stop_gradient` on the inactive leaves). Gradients still flow through
+    frozen layers' activations where an active parameter lies below them;
+    nothing active lies below layer2, so that backward is never built."""
+    for name, p in model.named_parameters():
+        p.requires_grad_(active[name])
+
+
+def _half(model, opt_state, batch, draws, lr, mode, active, reg_weights,
+          opt_config, targets=None, reduce=None):
+    """One step half: the mode's loss, its gradients, the update.
+    `reduce(grads, metrics, params) -> (grads, metrics)`, where given, runs
+    between the backward and the update (the data-parallel all-reduce,
+    parallel/spmd.py)."""
+    stop_inactive_grads(model, active)
+    total, metrics = model.loss_for_mode(batch, draws, mode, reg_weights,
+                                         **(targets or {}))
+    params = dict(model.named_parameters())
+    names = [n for n, a in active.items() if a]
+    grads = dict(zip(names, torch.autograd.grad(
+        total, [params[n] for n in names], allow_unused=True)))
+    log = getattr(model, "grad_log", None)
+    if log is not None:  # each half's gradient norm per leaf, for the check
+        live = [n for n in names if grads[n] is not None]
+        norms = torch.stack([grads[n].float().norm() for n in live]) \
+            if live else torch.zeros(0)
+        log.append(dict(zip(live, norms.tolist())))
+    metrics = dict(metrics)
+    metrics["loss"] = total.detach()
+    if reduce is not None:
+        grads, metrics = reduce(grads, metrics, params)
+    opt_state = apply_updates(params, grads, opt_state, active, lr,
+                              opt_config)
+    return opt_state, metrics
+
+
+def pair_metrics(m0, mk, mode_k: int):
+    """The metrics of a fused pair: both halves' under 'm0/' and
+    'm{k}/', with 'loss' mode k's total and 'loss0' mode 0's."""
+    metrics = {f"m0/{k}": v for k, v in m0.items()}
+    metrics.update({f"m{mode_k}/{k}": v for k, v in mk.items()})
+    metrics["loss"] = mk["loss"]
+    metrics["loss0"] = m0["loss"]
+    return metrics
+
+
+def make_train_step(model, mode: int, reg_weights: Sequence[float],
+                    opt_config: OptConfig, base_lr: float):
+    """-> step(opt_state, batch, draws, lr_scale=1.0) -> (opt_state,
+    metrics); updates the model's parameters in place."""
+    active = build_active_mask(model.param_group_labels(), mode)
+    reg_weights = tuple(float(w) for w in reg_weights)
+
+    def step(opt_state, batch, draws, lr_scale=1.0):
+        return _half(model, opt_state, batch, draws, base_lr * lr_scale,
+                     mode, active, reg_weights, opt_config)
+
+    return step
+
+
+def make_pair_step(model, mode_k: int, reg_weights: Sequence[float],
+                   opt_config: OptConfig, base_lr: float):
+    """Fused DG pair: the mode-0 update, then the mode-k update on the same
+    batch (the mode-k pass sees the mode-0-updated parameters). What both
+    halves take from the batch alone is computed once, before them
+    (`model.pair_targets`); it reads no parameter, so either half gets what
+    it would compute itself.
+
+    -> step(opt_state, batch, draws0, draws1, lr_scale=1.0) -> (opt_state,
+    metrics) with the metrics of both halves."""
+    labels = model.param_group_labels()
+    active_by_mode = {m: build_active_mask(labels, m) for m in (0, mode_k)}
+    reg_weights = tuple(float(w) for w in reg_weights)
+
+    def step(opt_state, batch, draws0, draws1, lr_scale=1.0):
+        lr = base_lr * lr_scale
+        targets = model.pair_targets(batch)
+        opt_state, m0 = _half(model, opt_state, batch, draws0, lr, 0,
+                              active_by_mode[0], reg_weights, opt_config,
+                              targets)
+        opt_state, mk = _half(model, opt_state, batch, draws1, lr, mode_k,
+                              active_by_mode[mode_k], reg_weights, opt_config,
+                              targets)
+        return opt_state, pair_metrics(m0, mk, mode_k)
+
+    return step
+
+
+def make_eval_step(model):
+    @torch.no_grad()
+    def step(batch):
+        return model.predict(batch)
+
+    return step
+
+
+def make_optimizer(model_name: str) -> tuple:
+    """Reference hyperparameters: FRCNN SGD(2e-3, wd 5e-4), FCOS Adam(1e-4,
+    wd 1e-4)."""
+    if model_name == "FRCNN":
+        return OptConfig("sgd", weight_decay=5e-4), 2e-3
+    if model_name == "FCOS":
+        return OptConfig("adam", weight_decay=1e-4), 1e-4
+    raise ValueError(model_name)
