@@ -25,6 +25,7 @@ from torch import nn
 
 from ..device import resolve_device
 from ..ops import losses as loss_ops
+from ..utils.logging import span
 from . import dg_heads
 from .fcos import (FCOS, FCOSLossConfig, fcos_loss, fcos_match_codes,
                    fcos_postprocess, one_hot)
@@ -129,65 +130,73 @@ class DGFCOSModel(nn.Module):
         if mode == 0:
             outputs, _ = self(batch["image"])
             det = self.detector
-            losses, _ = fcos_loss(outputs, det.anchors, det.anchor_counts,
-                                  batch["boxes"], batch["labels"],
-                                  batch["gt_valid"], self.loss_config,
-                                  matched, fg_count)
-            total = (losses["classification"] + losses["bbox_regression"]
-                     + losses["bbox_ctrness"])
+            with span("dgod.loss"):
+                losses, _ = fcos_loss(outputs, det.anchors,
+                                      det.anchor_counts, batch["boxes"],
+                                      batch["labels"], batch["gt_valid"],
+                                      self.loss_config, matched, fg_count)
+                total = (losses["classification"]
+                         + losses["bbox_regression"]
+                         + losses["bbox_ctrness"])
             return total, {f"det/{k}": v.detach() for k, v in losses.items()}
 
         _, aux = self(batch["image"])
-        ins_feat = aux["ins_feat"].float()  # [B, R, 256]
-        B, R, _ = ins_feat.shape
-        domain = batch["domain"].long()
-        ce = loss_ops.softmax_cross_entropy
+        with span("dgod.dg_heads"):
+            ins_feat = aux["ins_feat"].float()  # [B, R, 256]
+            B, R, _ = ins_feat.shape
+            domain = batch["domain"].long()
+            ce = loss_ops.softmax_cross_entropy
 
-        if mode == 1:
-            img_da = self.image_da(aux["c5"])  # [B, D]
-            ins_da = self.ins_da(ins_feat)  # [B, R, D]
-            l_img = ce(img_da, domain).mean()
-            l_ins = ce(ins_da, domain[:, None].expand(B, R)).mean()
-            l_cst = ((img_da[:, None, :] - ins_da) ** 2).mean()
-            total = (reg_weights[0] * l_img + reg_weights[1] * l_ins
-                     + reg_weights[2] * l_cst)
-            return total, {"dg/img_da": l_img.detach(),
-                           "dg/ins_da": l_ins.detach(),
-                           "dg/cst": l_cst.detach()}
+            if mode == 1:
+                img_da = self.image_da(aux["c5"])  # [B, D]
+                ins_da = self.ins_da(ins_feat)  # [B, R, D]
+                l_img = ce(img_da, domain).mean()
+                l_ins = ce(ins_da, domain[:, None].expand(B, R)).mean()
+                l_cst = ((img_da[:, None, :] - ins_da) ** 2).mean()
+                total = (reg_weights[0] * l_img + reg_weights[1] * l_ins
+                         + reg_weights[2] * l_cst)
+                return total, {"dg/img_da": l_img.detach(),
+                               "dg/ins_da": l_ins.detach(),
+                               "dg/cst": l_cst.detach()}
 
-        gt_classes = self._gt_classes(batch, matched)  # [B, R, C]
-        dense_ce = loss_ops.softmax_cross_entropy_dense
+            gt_classes = self._gt_classes(batch, matched)  # [B, R, C]
+            dense_ce = loss_ops.softmax_cross_entropy_dense
 
-        if mode == 2:
-            # detector frozen (torch.no_grad in the reference)
-            scores = self.ins_cls(ins_feat.detach(), domain)
-            l = dense_ce(scores, gt_classes).mean(1).mean()
-            return reg_weights[4] * l, {"dg/ins_cls": l.detach()}
+            if mode == 2:
+                # detector frozen (torch.no_grad in the reference)
+                scores = self.ins_cls(ins_feat.detach(), domain)
+                l = dense_ce(scores, gt_classes).mean(1).mean()
+                return reg_weights[4] * l, {"dg/ins_cls": l.detach()}
 
-        if mode == 3:
-            scores = self.ins_cls_prime(ins_feat, domain)
-            l = dense_ce(scores, gt_classes).mean(1).mean()
-            return reg_weights[3] * l, {"dg/ins_cls_prime": l.detach()}
+            if mode == 3:
+                scores = self.ins_cls_prime(ins_feat, domain)
+                l = dense_ce(scores, gt_classes).mean(1).mean()
+                return reg_weights[3] * l, {"dg/ins_cls_prime": l.detach()}
 
-        if mode == 4:
-            # InsCls frozen: gradients reach only the detector's features
-            all_scores = self.ins_cls(ins_feat, mode="all", frozen=True)
-            ce_img = dense_ce(all_scores, gt_classes[None]).mean(2)  # [D, B]
-            other = (torch.arange(self.num_domains, device=domain.device)
-                     [:, None] != domain[None, :])
-            l = loss_ops.masked_mean(ce_img, other)
-            return reg_weights[4] * l, {"dg/ins_cls_other": l.detach()}
+            if mode == 4:
+                # InsCls frozen: gradients reach only the detector's features
+                all_scores = self.ins_cls(ins_feat, mode="all", frozen=True)
+                # [D, B]
+                ce_img = dense_ce(all_scores, gt_classes[None]).mean(2)
+                other = (torch.arange(self.num_domains, device=domain.device)
+                         [:, None] != domain[None, :])
+                l = loss_ops.masked_mean(ce_img, other)
+                return reg_weights[4] * l, {"dg/ins_cls_other": l.detach()}
 
-        raise ValueError(f"unknown mode {mode}")
+            raise ValueError(f"unknown mode {mode}")
 
     # -- inference ---------------------------------------------------------
 
     @torch.no_grad()
     def predict(self, batch):
-        outputs, _ = self(batch["image"])
-        det = self.detector
-        return fcos_postprocess(outputs, det.anchors, det.anchor_counts,
-                                batch["image_size"], batch["scale_back"])
+        with span("dgod.predict"):
+            outputs, _ = self(batch["image"])
+            det = self.detector
+            with span("dgod.postprocess"):
+                return fcos_postprocess(outputs, det.anchors,
+                                        det.anchor_counts,
+                                        batch["image_size"],
+                                        batch["scale_back"])
 
     # -- optimizer groups --------------------------------------------------
 

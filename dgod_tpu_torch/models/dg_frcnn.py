@@ -23,6 +23,7 @@ from torch import nn
 
 from ..device import resolve_device
 from ..ops import losses as loss_ops
+from ..utils.logging import span
 from . import dg_heads
 from .faster_rcnn import FRCNNConfig, FRCNNDetector
 
@@ -115,15 +116,21 @@ class DGFRCNNModel(nn.Module):
     def _train_forward(self, batch, draws: Draws, need_rpn_grad: bool,
                        stop_box_grad: bool = False):
         det = self.detector
-        feats, _ = det.features(self.normalize(batch["image"]))
-        with torch.set_grad_enabled(need_rpn_grad and torch.is_grad_enabled()):
-            objectness, deltas = det.rpn_forward(feats)
-        proposals, prop_valid, _ = det.generate_proposals(
-            objectness, deltas, batch["image_size"], training=True)
-        rois, roi_labels, reg_targets, roi_valid = det.select_training_samples(
-            proposals, prop_valid, batch["boxes"], batch["labels"],
-            batch["gt_valid"], draws.roi_pos, draws.roi_neg)
-        f_in = [f.detach() for f in feats] if stop_box_grad else feats
+        with span("dgod.backbone"):
+            feats, _ = det.features(self.normalize(batch["image"]))
+        with span("dgod.rpn"):
+            with torch.set_grad_enabled(need_rpn_grad
+                                        and torch.is_grad_enabled()):
+                objectness, deltas = det.rpn_forward(feats)
+            proposals, prop_valid, _ = det.generate_proposals(
+                objectness, deltas, batch["image_size"], training=True)
+        with span("dgod.roi"):
+            rois, roi_labels, reg_targets, roi_valid = \
+                det.select_training_samples(
+                    proposals, prop_valid, batch["boxes"], batch["labels"],
+                    batch["gt_valid"], draws.roi_pos, draws.roi_neg)
+            f_in = [f.detach() for f in feats] if stop_box_grad else feats
+            box_features = det.box_features(f_in, rois)
         return {
             "feats": feats,
             "objectness": objectness,
@@ -132,7 +139,7 @@ class DGFRCNNModel(nn.Module):
             "roi_labels": roi_labels,
             "reg_targets": reg_targets,
             "roi_valid": roi_valid,
-            "box_features": det.box_features(f_in, rois),
+            "box_features": box_features,
         }
 
     # -- per-mode losses ---------------------------------------------------
@@ -142,14 +149,17 @@ class DGFRCNNModel(nn.Module):
         det = self.detector
         if mode == 0:
             fwd = self._train_forward(batch, draws, need_rpn_grad=True)
-            obj_loss, rpn_box_loss = det.rpn_loss(
-                fwd["objectness"], fwd["deltas"], batch["boxes"],
-                batch["gt_valid"], draws.rpn_pos, draws.rpn_neg)
-            logits, box_reg = det.box_predictions(fwd["box_features"])
-            cls_loss, box_loss = det.roi_loss(
-                logits, box_reg, fwd["roi_labels"], fwd["reg_targets"],
-                fwd["roi_valid"])
-            total = obj_loss + rpn_box_loss + cls_loss + box_loss
+            with span("dgod.loss"):
+                obj_loss, rpn_box_loss = det.rpn_loss(
+                    fwd["objectness"], fwd["deltas"], batch["boxes"],
+                    batch["gt_valid"], draws.rpn_pos, draws.rpn_neg)
+            with span("dgod.box_head"):
+                logits, box_reg = det.box_predictions(fwd["box_features"])
+            with span("dgod.loss"):
+                cls_loss, box_loss = det.roi_loss(
+                    logits, box_reg, fwd["roi_labels"], fwd["reg_targets"],
+                    fwd["roi_valid"])
+                total = obj_loss + rpn_box_loss + cls_loss + box_loss
             return total, {
                 "det/loss_objectness": obj_loss.detach(),
                 "det/loss_rpn_box_reg": rpn_box_loss.detach(),
@@ -160,60 +170,68 @@ class DGFRCNNModel(nn.Module):
         # mode 2 freezes the detector (torch.no_grad in the reference)
         fwd = self._train_forward(batch, draws, need_rpn_grad=False,
                                   stop_box_grad=(mode == 2))
-        box_feats = fwd["box_features"]  # [B, S, 1024]
-        B, S, _ = box_feats.shape
-        domain = batch["domain"].long()
-        ce = loss_ops.softmax_cross_entropy
+        with span("dgod.dg_heads"):
+            box_feats = fwd["box_features"]  # [B, S, 1024]
+            B, S, _ = box_feats.shape
+            domain = batch["domain"].long()
+            ce = loss_ops.softmax_cross_entropy
 
-        if mode == 1:
-            img_da = self.image_da(fwd["feats"][0].float())  # [B, D]
-            ins_da = self.ins_da(box_feats.reshape(B * S, -1))  # [B*S, D]
-            l_img = ce(img_da, domain).mean()
-            l_ins = ce(ins_da, domain.repeat_interleave(S)).mean()
-            exp_img = img_da.repeat_interleave(S, dim=0)
-            l_cst = ((ins_da - exp_img) ** 2).mean()
-            total = (reg_weights[0] * l_img + reg_weights[1] * l_ins
-                     + reg_weights[2] * l_cst)
-            return total, {"dg/img_da": l_img.detach(),
-                           "dg/ins_da": l_ins.detach(),
-                           "dg/cst": l_cst.detach()}
+            if mode == 1:
+                img_da = self.image_da(fwd["feats"][0].float())  # [B, D]
+                ins_da = self.ins_da(box_feats.reshape(B * S, -1))  # [B*S, D]
+                l_img = ce(img_da, domain).mean()
+                l_ins = ce(ins_da, domain.repeat_interleave(S)).mean()
+                exp_img = img_da.repeat_interleave(S, dim=0)
+                l_cst = ((ins_da - exp_img) ** 2).mean()
+                total = (reg_weights[0] * l_img + reg_weights[1] * l_ins
+                         + reg_weights[2] * l_cst)
+                return total, {"dg/img_da": l_img.detach(),
+                               "dg/ins_da": l_ins.detach(),
+                               "dg/cst": l_cst.detach()}
 
-        roi_labels = fwd["roi_labels"]  # [B, S], 0 = background
+            roi_labels = fwd["roi_labels"]  # [B, S], 0 = background
 
-        if mode == 2:
-            scores = self.ins_cls(box_feats, domain)  # [B, S, C]
-            l = ce(scores, roi_labels).mean(1).mean()
-            return reg_weights[4] * l, {"dg/ins_cls": l.detach()}
+            if mode == 2:
+                scores = self.ins_cls(box_feats, domain)  # [B, S, C]
+                l = ce(scores, roi_labels).mean(1).mean()
+                return reg_weights[4] * l, {"dg/ins_cls": l.detach()}
 
-        if mode == 3:
-            scores = self.ins_cls_prime(box_feats, domain)
-            l = ce(scores, roi_labels).mean(1).mean()
-            return reg_weights[3] * l, {"dg/ins_cls_prime": l.detach()}
+            if mode == 3:
+                scores = self.ins_cls_prime(box_feats, domain)
+                l = ce(scores, roi_labels).mean(1).mean()
+                return reg_weights[3] * l, {"dg/ins_cls_prime": l.detach()}
 
-        if mode == 4:
-            all_scores = self.ins_cls(box_feats, mode="all", frozen=True)
-            ce_all = ce(all_scores, roi_labels[None].expand(
-                self.num_domains, -1, -1))  # [D, B, S]
-            other = (torch.arange(self.num_domains, device=domain.device)
-                     [:, None] != domain[None, :])
-            l = loss_ops.masked_mean(ce_all.mean(2), other)
-            return reg_weights[4] * l, {"dg/ins_cls_other": l.detach()}
+            if mode == 4:
+                all_scores = self.ins_cls(box_feats, mode="all", frozen=True)
+                ce_all = ce(all_scores, roi_labels[None].expand(
+                    self.num_domains, -1, -1))  # [D, B, S]
+                other = (torch.arange(self.num_domains, device=domain.device)
+                         [:, None] != domain[None, :])
+                l = loss_ops.masked_mean(ce_all.mean(2), other)
+                return reg_weights[4] * l, {"dg/ins_cls_other": l.detach()}
 
-        raise ValueError(f"unknown mode {mode}")
+            raise ValueError(f"unknown mode {mode}")
 
     # -- inference ---------------------------------------------------------
 
     @torch.no_grad()
     def predict(self, batch):
         det = self.detector
-        feats, _ = det.features(self.normalize(batch["image"]))
-        objectness, deltas = det.rpn_forward(feats)
-        proposals, prop_valid, _ = det.generate_proposals(
-            objectness, deltas, batch["image_size"], training=False)
-        box_feats = det.box_features(feats, proposals)
-        logits, box_reg = det.box_predictions(box_feats)
-        return det.postprocess(logits, box_reg, proposals, prop_valid,
-                               batch["image_size"], batch["scale_back"])
+        with span("dgod.predict"):
+            with span("dgod.backbone"):
+                feats, _ = det.features(self.normalize(batch["image"]))
+            with span("dgod.rpn"):
+                objectness, deltas = det.rpn_forward(feats)
+                proposals, prop_valid, _ = det.generate_proposals(
+                    objectness, deltas, batch["image_size"], training=False)
+            with span("dgod.roi"):
+                box_feats = det.box_features(feats, proposals)
+            with span("dgod.box_head"):
+                logits, box_reg = det.box_predictions(box_feats)
+            with span("dgod.postprocess"):
+                return det.postprocess(logits, box_reg, proposals,
+                                       prop_valid, batch["image_size"],
+                                       batch["scale_back"])
 
     # -- optimizer groups --------------------------------------------------
 

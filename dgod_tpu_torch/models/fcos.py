@@ -31,6 +31,7 @@ from ..ops import boxes as box_ops
 from ..ops import losses as loss_ops
 from ..ops import matchers
 from ..ops import nms as nms_ops
+from ..utils.logging import span
 from .backbone import FCOSBackbone
 from .faster_rcnn import _gather_rows, _top_sorted
 from .layers import Conv, GroupNorm, init_normal
@@ -128,11 +129,13 @@ class FCOS(nn.Module):
         [B,R,C], 'bbox_regression' [B,R,4], 'bbox_ctrness' [B,R,1]; aux 'c5'
         [B,h,w,2048] NHWC and 'ins_feat' [B,R,256], the head's input per
         location, both in the compute dtype."""
-        feats, c = self.features(images)
-        cls_logits, bbox_reg, ctrness = self.head(
-            [f.permute(0, 3, 1, 2) for f in feats])
-        ins_feat = torch.cat([f.reshape(f.shape[0], -1, f.shape[-1])
-                              for f in feats], 1)
+        with span("dgod.backbone"):
+            feats, c = self.features(images)
+        with span("dgod.head"):
+            cls_logits, bbox_reg, ctrness = self.head(
+                [f.permute(0, 3, 1, 2) for f in feats])
+            ins_feat = torch.cat([f.reshape(f.shape[0], -1, f.shape[-1])
+                                  for f in feats], 1)
         aux = {"c5": c["c5"].permute(0, 2, 3, 1), "ins_feat": ins_feat}
         return {"cls_logits": cls_logits, "bbox_regression": bbox_reg,
                 "bbox_ctrness": ctrness}, aux

@@ -33,6 +33,7 @@ import torch.distributed as dist
 
 from ..train.optim import OptConfig
 from ..train.steps import _half, build_active_mask, pair_metrics
+from ..utils.logging import span
 from .mesh import Mesh
 
 
@@ -135,14 +136,16 @@ def make_spmd_pair_step(model, mode_k: int, reg_weights: Sequence[float],
 
     def step(opt_state, batch, draws0, draws1, lr_scale=1.0):
         lr = base_lr * lr_scale
-        targets = model.pair_targets(batch,
-                                     _sum_over_data(mesh) if glob else None)
-        opt_state, m0 = _half(model, opt_state, batch, draws0, lr, 0,
-                              active_by_mode[0], reg_weights, opt_config,
-                              targets, reduce[0])
-        opt_state, mk = _half(model, opt_state, batch, draws1, lr, mode_k,
-                              active_by_mode[mode_k], reg_weights,
-                              opt_config, targets, reduce[mode_k])
+        with span("dgod.pair"):
+            with span("dgod.targets"):
+                targets = model.pair_targets(
+                    batch, _sum_over_data(mesh) if glob else None)
+            opt_state, m0 = _half(model, opt_state, batch, draws0, lr, 0,
+                                  active_by_mode[0], reg_weights, opt_config,
+                                  targets, reduce[0])
+            opt_state, mk = _half(model, opt_state, batch, draws1, lr,
+                                  mode_k, active_by_mode[mode_k], reg_weights,
+                                  opt_config, targets, reduce[mode_k])
         return opt_state, pair_metrics(m0, mk, mode_k)
 
     return step

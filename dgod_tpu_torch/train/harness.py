@@ -55,7 +55,7 @@ from ..eval import MeanAveragePrecision
 from ..parallel import multihost, spmd
 from ..parallel.tensor_parallel import gather_state, shard_model, shard_state
 from ..utils import weights as weights_lib
-from ..utils.logging import MetricsLogger
+from ..utils.logging import MetricsLogger, span
 from . import steps as step_lib
 from .checkpoint import make_store, tree_to
 from .optim import EarlyStopping, ReduceLROnPlateau, init_opt_state
@@ -195,11 +195,27 @@ class Trainer:
                                with_rpn=with_rpn)
 
     def train_epoch(self) -> Dict[str, float]:
-        t0 = time.time()
+        """One pass over the train loader. -> the last logged metrics with
+        `images_per_sec`, the images trained over the epoch's wall time
+        from a synchronised start to a synchronised end, and
+        `loader_wait_s`, the host's seconds blocked waiting for the next
+        batch of `device_prefetch`."""
+        cuda = self.device.type == "cuda"
+        if cuda:
+            torch.cuda.synchronize(self.device)
+        t0 = time.perf_counter()
         n_images = 0
+        loader_wait_s = 0.0
         last_metrics = {}
         metrics = None
-        for batch in device_prefetch(self.train_loader.epoch(), self.device):
+        batches = device_prefetch(self.train_loader.epoch(), self.device)
+        while True:
+            t_wait = time.perf_counter()
+            with span("dgod.loader_wait"):
+                batch = next(batches, None)
+            loader_wait_s += time.perf_counter() - t_wait
+            if batch is None:
+                break
             lr_scale = self.plateau.scale
             if self.warmup_steps and self.global_step < self.warmup_steps:
                 lr_scale *= (self.global_step + 1) / self.warmup_steps
@@ -230,27 +246,29 @@ class Trainer:
                                  {"mode": mode, **last_metrics})
                 self._print(f"step {self.global_step} mode {mode} loss "
                             f"{last_metrics.get('loss', float('nan')):.4f}")
-        if self.device.type == "cuda":
+        if cuda:
             torch.cuda.synchronize(self.device)
-        dt = time.time() - t0
+        dt = time.perf_counter() - t0
         if not last_metrics and metrics is not None:
             # no step hit the log cadence this epoch: report the last one
             last_metrics = {k: float(v) for k, v in metrics.items()}
-        return {"images_per_sec": n_images / max(dt, 1e-9), **last_metrics}
+        return {"images_per_sec": n_images / max(dt, 1e-9),
+                "loader_wait_s": loader_wait_s, **last_metrics}
 
     def _fetch(self, dets):
         """Start the copy of a predict's outputs to the host: on the card a
         non-blocking copy into pinned memory and an event; the event is
         waited on only when the host needs the values."""
-        if self.device.type != "cuda":
-            return {k: dets[k] for k in _DET_KEYS}, None
-        host = {}
-        for k in _DET_KEYS:
-            host[k] = torch.empty(dets[k].shape, dtype=dets[k].dtype,
-                                  pin_memory=True)
-            host[k].copy_(dets[k], non_blocking=True)
-        done = torch.cuda.Event()
-        done.record()
+        with span("dgod.fetch"):
+            if self.device.type != "cuda":
+                return {k: dets[k] for k in _DET_KEYS}, None
+            host = {}
+            for k in _DET_KEYS:
+                host[k] = torch.empty(dets[k].shape, dtype=dets[k].dtype,
+                                      pin_memory=True)
+                host[k].copy_(dets[k], non_blocking=True)
+            done = torch.cuda.Event()
+            done.record()
         return host, done
 
     def validate(self, loader=None) -> Dict[str, Any]:
@@ -365,6 +383,7 @@ class Trainer:
                     "epoch", epoch,
                     {"val_acc": val_acc,
                      "images_per_sec": train_stats["images_per_sec"],
+                     "loader_wait_s": train_stats["loader_wait_s"],
                      "lr_scale": self.plateau.scale},
                 )
                 self._print(f"epoch {epoch}: val mAP@0.5 {val_acc:.4f} "

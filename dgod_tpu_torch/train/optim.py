@@ -19,6 +19,8 @@ from typing import Dict, NamedTuple, Optional
 
 import torch
 
+from ..utils.logging import span
+
 
 class OptConfig(NamedTuple):
     kind: str  # 'sgd' | 'adam'
@@ -44,25 +46,26 @@ def apply_updates(params: Dict[str, torch.Tensor],
                   active: Dict[str, bool], lr: float, config: OptConfig):
     """One in-place step on every active parameter; a missing or None grad
     counts as zero. Returns the (updated) optimizer state."""
-    for name, p in params.items():
-        if not active[name]:
-            continue
-        g = grads.get(name)
-        if g is None:
-            g = torch.zeros_like(p)
-        if config.kind == "sgd":
-            p.copy_(p - lr * (g + config.weight_decay * p))
-            continue
-        g = g + config.weight_decay * p
-        c = opt_state["count"][name] + 1
-        opt_state["count"][name] = c
-        m = opt_state["mu"][name]
-        v = opt_state["nu"][name]
-        m.copy_(config.b1 * m + (1 - config.b1) * g)
-        v.copy_(config.b2 * v + (1 - config.b2) * (g * g))
-        m_hat = m / (1 - config.b1 ** c)
-        v_hat = v / (1 - config.b2 ** c)
-        p.copy_(p - lr * m_hat / (torch.sqrt(v_hat) + config.eps))
+    with span("dgod.update"):
+        for name, p in params.items():
+            if not active[name]:
+                continue
+            g = grads.get(name)
+            if g is None:
+                g = torch.zeros_like(p)
+            if config.kind == "sgd":
+                p.copy_(p - lr * (g + config.weight_decay * p))
+                continue
+            g = g + config.weight_decay * p
+            c = opt_state["count"][name] + 1
+            opt_state["count"][name] = c
+            m = opt_state["mu"][name]
+            v = opt_state["nu"][name]
+            m.copy_(config.b1 * m + (1 - config.b1) * g)
+            v.copy_(config.b2 * v + (1 - config.b2) * (g * g))
+            m_hat = m / (1 - config.b1 ** c)
+            v_hat = v / (1 - config.b2 ** c)
+            p.copy_(p - lr * m_hat / (torch.sqrt(v_hat) + config.eps))
     return opt_state
 
 

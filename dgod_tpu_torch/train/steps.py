@@ -20,6 +20,7 @@ from typing import Dict, Sequence
 
 import torch
 
+from ..utils.logging import span
 from .optim import OptConfig, apply_updates
 
 MODE_ACTIVE_GROUPS = {
@@ -29,6 +30,8 @@ MODE_ACTIVE_GROUPS = {
     3: ("detector", "ins_cls_prime"),
     4: ("detector",),
 }
+# the profiler's name of each mode's step half
+HALF_SPANS = tuple(f"dgod.half.m{m}" for m in range(5))
 
 
 class ModeScheduler:
@@ -70,19 +73,23 @@ def _half(model, opt_state, batch, draws, lr, mode, active, reg_weights,
     `reduce(grads, metrics, params) -> (grads, metrics)`, where given, runs
     between the backward and the update (the data-parallel all-reduce,
     parallel/spmd.py)."""
-    stop_inactive_grads(model, active)
-    total, metrics = model.loss_for_mode(batch, draws, mode, reg_weights,
-                                         **(targets or {}))
-    params = dict(model.named_parameters())
-    names = [n for n, a in active.items() if a]
-    grads = dict(zip(names, torch.autograd.grad(
-        total, [params[n] for n in names], allow_unused=True)))
-    metrics = dict(metrics)
-    metrics["loss"] = total.detach()
-    if reduce is not None:
-        grads, metrics = reduce(grads, metrics, params)
-    opt_state = apply_updates(params, grads, opt_state, active, lr,
-                              opt_config)
+    with span(HALF_SPANS[mode]):
+        stop_inactive_grads(model, active)
+        with span("dgod.forward"):
+            total, metrics = model.loss_for_mode(batch, draws, mode,
+                                                 reg_weights,
+                                                 **(targets or {}))
+        params = dict(model.named_parameters())
+        names = [n for n, a in active.items() if a]
+        with span("dgod.backward"):
+            grads = dict(zip(names, torch.autograd.grad(
+                total, [params[n] for n in names], allow_unused=True)))
+        metrics = dict(metrics)
+        metrics["loss"] = total.detach()
+        if reduce is not None:
+            grads, metrics = reduce(grads, metrics, params)
+        opt_state = apply_updates(params, grads, opt_state, active, lr,
+                                  opt_config)
     return opt_state, metrics
 
 
@@ -126,13 +133,15 @@ def make_pair_step(model, mode_k: int, reg_weights: Sequence[float],
 
     def step(opt_state, batch, draws0, draws1, lr_scale=1.0):
         lr = base_lr * lr_scale
-        targets = model.pair_targets(batch)
-        opt_state, m0 = _half(model, opt_state, batch, draws0, lr, 0,
-                              active_by_mode[0], reg_weights, opt_config,
-                              targets)
-        opt_state, mk = _half(model, opt_state, batch, draws1, lr, mode_k,
-                              active_by_mode[mode_k], reg_weights, opt_config,
-                              targets)
+        with span("dgod.pair"):
+            with span("dgod.targets"):
+                targets = model.pair_targets(batch)
+            opt_state, m0 = _half(model, opt_state, batch, draws0, lr, 0,
+                                  active_by_mode[0], reg_weights, opt_config,
+                                  targets)
+            opt_state, mk = _half(model, opt_state, batch, draws1, lr,
+                                  mode_k, active_by_mode[mode_k], reg_weights,
+                                  opt_config, targets)
         return opt_state, pair_metrics(m0, mk, mode_k)
 
     return step

@@ -12,6 +12,12 @@ the mirror is off with a warning and the JSONL log continues.
 `profile_steps` records the steps it encloses with torch.profiler and
 writes one Chrome/Perfetto trace (the port of the JAX package's
 `profile_steps`, which records a device trace with jax.profiler).
+
+`span(name)` marks one layer of the program (a `dgod.*` name) in that
+trace: while a torch.profiler records, a `record_function` range on the
+profiler's own clock, beside the kernels and the CUDA runtime calls it
+issued; otherwise one shared null context, so the spans cost a flag test
+when nobody profiles.
 """
 
 from __future__ import annotations
@@ -20,8 +26,22 @@ import json
 import os
 import sys
 import time
-from contextlib import contextmanager
+from contextlib import contextmanager, nullcontext
 from typing import Any, Dict, Optional
+
+import torch
+from torch.autograd import profiler as _autograd_profiler
+
+_NO_SPAN = nullcontext()
+
+
+def span(name: str):
+    """A `record_function(name)` range while a torch.profiler records, else
+    the shared null context. Callers pass a constant name: the spans sit at
+    layer boundaries, on the hot path of every step."""
+    if _autograd_profiler._is_profiler_enabled:
+        return torch.profiler.record_function(name)
+    return _NO_SPAN
 
 
 class MetricsLogger:
@@ -86,7 +106,6 @@ def profile_steps(log_dir: str):
     write one Chrome/Perfetto trace into `log_dir`. Yields the trace's
     path; the file is written when the block ends (the card's queued work
     is waited for first, so its kernels are in the trace)."""
-    import torch
     from torch.profiler import ProfilerActivity, profile
 
     os.makedirs(log_dir, exist_ok=True)

@@ -1,0 +1,9 @@
+"""Device-idle ms per DG cycle inside the program's `dgod.backward` spans,
+in a pass that records the host's operations (bench/spans.py)."""
+
+from perfbench.bench import spans
+
+
+def read(ctx):
+    return spans.of(ctx).idle_ms("dgod.backward") if ctx.path == "train" \
+        else None

@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import hashlib
 import os
+import time
 
 import numpy as np
 import torch
@@ -106,11 +107,14 @@ def fixed_box_trainer(root, mesh=None):
 
 
 def epoch_result(trainer):
+    t0 = time.perf_counter()
     stats = trainer.train_epoch()
+    epoch_s = time.perf_counter() - t0
     val = trainer.validate()
     return {"step": trainer.global_step, "loss": stats["loss"],
             "loss0": stats["loss0"], "map": val["map_50"],
             "images_per_sec": stats["images_per_sec"],
+            "loader_wait_s": stats["loader_wait_s"], "epoch_s": epoch_s,
             "params": numpy_params(trainer.model)}
 
 

@@ -262,6 +262,9 @@ def test_trainer_mesh_dp_matches_single_device(two_ranks, tmp_path,
     single = R.epoch_result(R.fixed_box_trainer(str(tmp_path)))
     # 32 images / global batch 8 = 4 pair steps: all four DG pairs ran
     assert single["step"] == 8
+    for got in [single] + [r["dp"] for r in two_ranks["ranks"]]:
+        # the host's wait for batches is a part of the epoch's wall time
+        assert 0 <= got["loader_wait_s"] <= got["epoch_s"]
     for got in (r["dp"] for r in two_ranks["ranks"]):
         assert got["step"] == 8
         np.testing.assert_allclose(got["loss"], single["loss"], rtol=1e-4)
