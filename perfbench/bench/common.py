@@ -1,8 +1,10 @@
-"""What every cell shares: finding a cell's files by name, spans, the
+"""What every cell shares: finding a cell's files by name (its
+configuration's builder and the port's kernel files among them), spans, the
 closing checks and the result line."""
 
 from __future__ import annotations
 
+import functools
 import importlib.util
 import json
 import math
@@ -65,6 +67,53 @@ def metric_reader(name: str, root: Path = ROOT):
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
     return module.read
+
+
+@functools.lru_cache(maxsize=None)
+def _load(path: Path, module_name: str):
+    """The module of the file `path`, executed once per path."""
+    spec = importlib.util.spec_from_file_location(module_name, path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def builder(config: dict, root: Path = ROOT):
+    """The module perfbench/builders/<family, lower case>.py of `config`,
+    through which the configuration brings its architecture: both sides'
+    models, its draws, its model FLOPs, the port's kernels on each path and
+    its CPU sizes."""
+    family = config["family"].lower()
+    path = root / "perfbench" / "builders" / f"{family}.py"
+    if not path.exists():
+        raise CellError(f"{path}: no builder for the family "
+                        f"{config['family']!r}")
+    return _load(path, f"perfbench_builder_{family}")
+
+
+def kernel_files(ids=None, root: Path = ROOT) -> dict:
+    """The port's kernels, one file each, perfbench/kernels/<id>.py: id ->
+    module with CATEGORY, PATTERN and RANK (the order in which the patterns
+    claim a kernel's name, lowest first), launches() and work(sizes, batch,
+    max_gt). `ids`: only these files (a cell's, its builder's `kernels_on`),
+    so that a cell never loads a kernel file it does not launch; None: every
+    file. Ordered by RANK."""
+    folder = root / "perfbench" / "kernels"
+    if ids is None:
+        paths = sorted(folder.glob("*.py"))
+    else:
+        paths = [folder / f"{kid}.py" for kid in ids]
+        for p in paths:
+            if not p.exists():
+                raise CellError(f"{p}: no file for the kernel {p.stem!r}")
+    modules = {p.stem: _load(p, f"perfbench_kernel_{p.stem}") for p in paths}
+    return dict(sorted(modules.items(), key=lambda kv: (kv[1].RANK, kv[0])))
+
+
+def cell_kernels(config: dict, path: str, root: Path = ROOT) -> tuple:
+    """The ids of the port's kernels that `path` ('train' or 'predict') of
+    `config` may launch, as its builder lists them (`kernels_on`)."""
+    return tuple(sorted(builder(config, root).kernels_on(path, config)))
 
 
 def forbidden_modules(modules=None) -> list:

@@ -1,22 +1,27 @@
 """The yardstick of the device's work: the profiler categories of kernel
 names (a frozen copy of scripts/profile_torch_pairs.py's CATEGORIES) and the
-work of each of the port's kernels K1-K6 per launch (the arithmetic of
-chip_smoke.py's kernels line), with the H100 SXM's published peaks. A
-kernel's bound is max(bytes / HBM rate, operations / float32 rate).
+work of each of the port's kernels per launch, with the H100 SXM's published
+peaks. A kernel's bound is max(bytes / HBM rate, operations / float32 rate).
 
-The launches on the main paths have static shapes, given by the
-configuration and the traffic: K1 and K2 pool the sampled RoIs (training)
-or the RPN's proposals (predict), K3 matches every anchor against the
-padded ground truth, K4 every FCOS location, K5 decodes the per-level
-top-k, K6 ranks the per-class candidates of a predict. Each count here is
-what those inputs need, read once and written once; the terms of
-chip_smoke.py that depend on the data (the feature cells a RoI touches,
-the IoU tests an NMS needs) are left out, so a bound is never above what
-the kernel must do, and a share of it never above 100% for that reason."""
+Each of the port's kernels is a file of its own, perfbench/kernels/<id>.py
+(common.kernel_files): the launch counter it reads, the pattern that claims
+its device time, and its work per launch from the sizes of its inputs, which
+the configuration's builder gives for each path (`kernels_on`). A cell
+reads only the files of the kernels its builder lists, so a kernel file
+added for a new configuration leaves the other cells' readings as they
+were. The launches on the main paths have static shapes, given by the
+configuration and the traffic. Each count is what those inputs need, read
+once and written once; the terms of chip_smoke.py that depend on the data
+(the feature cells a RoI touches, the IoU tests an NMS needs) are left out,
+so a bound is never above what the kernel must do, and a share of it never
+above 100% for that reason."""
 
 from __future__ import annotations
 
+import functools
 import re
+
+from . import common
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM5 HBM3, NVIDIA's datasheet
 F32_FLOPS = 67e12  # H100 SXM5 float32 outside the tensor cores
@@ -40,20 +45,39 @@ CATEGORIES = (
 )
 CONV_GEMM = "conv / gemm (cuDNN, cuBLAS)"
 ELEMENTWISE = "elementwise / copy"
-_COMPILED = tuple((cat, re.compile(p)) for cat, p in CATEGORIES)
+# the rows for kernels outside the port's kernel files, tried after them
+GENERIC = tuple((cat, re.compile(p)) for cat, p in CATEGORIES
+                if not cat.endswith("(port)"))
 
 
-def category(name: str) -> str:
-    for cat, pattern in _COMPILED:
+@functools.lru_cache(maxsize=None)
+def _port(ids) -> tuple:
+    """(id, category, compiled pattern) of the kernel files `ids` (a tuple,
+    or None for every file), by RANK."""
+    return tuple((kid, k.CATEGORY, re.compile(k.PATTERN))
+                 for kid, k in common.kernel_files(ids).items())
+
+
+def category(name: str, ids=None) -> str:
+    """The category of the kernel `name`: the first of the kernel files
+    `ids` (a cell's, common.cell_kernels; None: every file) whose pattern
+    matches it, else the first generic row, else 'other'."""
+    for _, cat, pattern in _port(ids):
+        if pattern.search(name):
+            return cat
+    for cat, pattern in GENERIC:
         if pattern.search(name):
             return cat
     return "other"
 
 
-def kernel_id(name: str):
-    """'K1'..'K6' for a kernel of the port, else None."""
-    cat = category(name)
-    return cat[:2] if cat.endswith("(port)") else None
+def kernel_id(name: str, ids=None):
+    """The id of the kernel file among `ids` (as in `category`) that
+    claims the kernel `name` (e.g. 'K1'), else None."""
+    for kid, _, pattern in _port(ids):
+        if pattern.search(name):
+            return kid
+    return None
 
 
 def _ceil_div(a: int, b: int) -> int:
@@ -85,44 +109,15 @@ def launch_work(kid: str, path: str, config: dict, batch: int,
                 max_gt: int) -> tuple:
     """(bytes, float32 operations) of one launch of kernel `kid` on the
     `path` ('train' or 'predict') of `config` at `batch` images and `max_gt`
-    padded boxes per image."""
-    canvas = tuple(config["canvas"])
-    B, G, C = batch, max_gt, FPN_CHANNELS
-    if kid in ("K1", "K2"):
-        frcnn = config["frcnn"]
-        per_image = (frcnn["box_batch_per_image"] if path == "train"
-                     else frcnn["rpn_post_nms_test"])
-        n_roi = B * per_image
-        pooled = n_roi * 49 * C * 4
-        ops = n_roi * 49 * 4 * 8 * C  # 4 samples x 4 corners x (mul + add)
-        if kid == "K1":
-            return pooled + n_roi * 16, ops
-        grads = sum(B * h * w * C * 2
-                    for h, w in level_sizes(canvas, ROI_STRIDES))
-        return pooled + n_roi * 16 + grads, ops
-    if kid == "K3":
-        R = sum(frcnn_anchor_counts(canvas))
-        return B * G * 17 + R * 16 + B * R * 4, 0
-    if kid == "K4":
-        R = sum(fcos_anchor_counts(canvas))
-        return B * G * 17 + R * 16 + B * R * 4, 0
-    if kid == "K5":
-        frcnn = config["frcnn"]
-        top = (frcnn["rpn_pre_nms_train"] if path == "train"
-               else frcnn["rpn_pre_nms_test"])
-        entries = B * sum(min(top, n) for n in frcnn_anchor_counts(canvas))
-        return entries * (16 + 16 + 16 + 1) + B * 8, 30 * entries
-    if kid == "K6":
-        if config["family"] == "FRCNN":
-            frcnn = config["frcnn"]
-            K = frcnn["rpn_post_nms_test"] * config["num_classes"]
-            k = frcnn["detections_per_img"]
-        else:
-            top = config["fcos"]["topk_candidates"]
-            K = sum(min(top, n) for n in fcos_anchor_counts(canvas))
-            k = config["fcos"]["detections_per_img"]
-        return B * K * 5 + B * k * 9, 0
-    raise ValueError(kid)
+    padded boxes per image: the kernel file's work at the sizes that the
+    configuration's builder gives for the path."""
+    sizes = common.builder(config).kernels_on(path, config)
+    if kid not in sizes:
+        raise KeyError(f"{kid} launched on the {path} path, where the "
+                       f"builder of {config.get('name')!r} lists "
+                       f"{sorted(sizes)}")
+    return common.kernel_files((kid,))[kid].work(sizes[kid], batch,
+                                                  max_gt)
 
 
 def bound_s(kid: str, path: str, config: dict, batch: int,

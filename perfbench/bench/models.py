@@ -1,14 +1,15 @@
 """Both sides of a cell from one configuration file: the program's model
 (dgod_tpu_torch, the system under test) and the plain reference's
-(perfbench/reference), with the weights that the benchmark makes from the
-seed and hands to both.
+(perfbench/reference), each built by the configuration's builder
+(common.builder), with the weights that the benchmark makes from the seed
+and hands to both.
 
 The weights: every leaf that the model's initialisers name gets its scale
 from them and its values from one truncated normal drawn on the card by a
 seeded `torch.Generator` in one call; every other leaf keeps the value its
-constructor gives (zero biases, unit GroupNorm scales, FCOS's class prior).
-FrozenBatchNorm's statistics are those of each layer's own input on the
-cell's images (calibrate_frozen_bn), taken through the reference in
+constructor gives (zero biases, unit GroupNorm scales, a head's class
+prior). FrozenBatchNorm's statistics are those of each layer's own input on
+the cell's images (calibrate_frozen_bn), taken through the reference in
 float32: random convolutions under identity statistics let ResNet-50's
 activations grow until the first SGD steps diverge, and no pretrained
 statistics are on the machine."""
@@ -19,27 +20,11 @@ import contextlib
 
 import torch
 
-from . import synthetic
+from . import common, synthetic
 
 # the standard deviation of a unit normal truncated to [-2, 2]
 TRUNC_STD = 0.87962566103423978
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
-
-
-def _kwargs(config: dict, pkg, compute_dtype):
-    """Constructor arguments of the family's model in package `pkg` (the
-    program's `dgod_tpu_torch.models` or the reference's)."""
-    kw = dict(num_classes=config["num_classes"],
-              num_domains=config["num_domains"],
-              canvas=tuple(config["canvas"]), compute_dtype=compute_dtype,
-              backbone_block_counts=tuple(config["backbone_block_counts"]))
-    if config["family"] == "FRCNN":
-        frcnn = dict(config["frcnn"])
-        frcnn["box_reg_weights"] = tuple(frcnn["box_reg_weights"])
-        kw["config"] = pkg.faster_rcnn.FRCNNConfig(**frcnn)
-        return pkg.dg_frcnn.DGFRCNNModel, kw
-    kw["loss_config"] = pkg.fcos.FCOSLossConfig(**config["fcos_loss"])
-    return pkg.dg_fcos.DGFCOSModel, kw
 
 
 def reference_model(config: dict, device, fp8: bool = False, dtype=None):
@@ -49,29 +34,16 @@ def reference_model(config: dict, device, fp8: bool = False, dtype=None):
     constructed (the initialisers draw nothing). `fp8`: the precision
     control, the nearest precision below, every Conv and Dense computing
     on fp8 operands."""
-    from ..reference import models as pkg
-    from ..reference.models import (dg_fcos, dg_frcnn, faster_rcnn,  # noqa
-                                    fcos, layers)
-
-    cls, kw = _kwargs(config, pkg, dtype or DTYPES[config["compute_dtype"]])
-    model = cls(device=device, **kw)
-    if fp8:
-        for m in model.modules():
-            if isinstance(m, (layers.Conv, layers.Dense)):
-                m.fp8 = True
-    return model
+    return common.builder(config).reference_model(
+        config, device, dtype or DTYPES[config["compute_dtype"]], fp8)
 
 
 def program_model(config: dict, device):
     """The program's model of `config`, in the configuration's compute
     dtype, on `device`; its own initial draws are overwritten by
     `load_state`."""
-    from dgod_tpu_torch import models as pkg
-    from dgod_tpu_torch.models import (dg_fcos, dg_frcnn, faster_rcnn,  # noqa
-                                       fcos)
-
-    cls, kw = _kwargs(config, pkg, DTYPES[config["compute_dtype"]])
-    return cls(device=device, **kw)
+    return common.builder(config).program_model(
+        config, device, DTYPES[config["compute_dtype"]])
 
 
 def frozen_bn_buffers(model) -> list:

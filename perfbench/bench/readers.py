@@ -2,28 +2,20 @@
 
 from __future__ import annotations
 
+from . import common
+
 
 def train_flops_per_image(ctx) -> float:
-    """Model FLOPs per trained image of a DG cycle (frozen copy of
-    utils/flops.py::cycle_flops), at the cycle's own sizes."""
-    c = ctx.config
-    rois = c["frcnn"]["box_batch_per_image"] if c["family"] == "FRCNN" \
-        else 512
-    cyc = ctx.flops.cycle_flops(c["family"], tuple(c["canvas"]),
-                                ctx.s.batch, c["num_domains"], rois,
-                                tuple(c["backbone_block_counts"]))
-    return cyc["cycle"] / cyc["images_per_cycle"]
+    """Model FLOPs per trained image of a DG cycle, at the cycle's own
+    sizes, as the configuration's builder counts them."""
+    return common.builder(ctx.config).train_flops_per_image(ctx.config,
+                                                            ctx.s.batch)
 
 
 def predict_flops_per_image(ctx) -> float:
-    """Model FLOPs of one image's forward at predict (the RPN's
-    rpn_post_nms_test RoIs for FRCNN)."""
-    c = ctx.config
-    rois = c["frcnn"]["rpn_post_nms_test"] if c["family"] == "FRCNN" else 0
-    fw = ctx.flops.family_forward_flops(c["family"], tuple(c["canvas"]),
-                                        rois,
-                                        tuple(c["backbone_block_counts"]))
-    return fw["frozen"] + fw["trunk"] + fw["head"]
+    """Model FLOPs of one image's forward at predict, as the
+    configuration's builder counts them."""
+    return common.builder(ctx.config).predict_flops_per_image(ctx.config)
 
 
 def mfu_percent(ctx, flops_per_image: float) -> float:
@@ -36,7 +28,7 @@ def kernel_roofline_percent(ctx):
     """Sum of the port's kernels' bounds over their launches in the
     profiled sub-window, over the device time of those kernels there, in
     %; None where none of them ran."""
-    device_s = ctx.profile.device_s_by(ctx.kernels.kernel_id)
+    device_s = ctx.profile.kernel_s()
     device_s.pop(None, None)
     total_s = sum(device_s.values())
     if total_s <= 0:

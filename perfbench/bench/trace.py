@@ -63,11 +63,15 @@ def window_bounds(events) -> tuple:
 
 class Profile:
     """One profiled sub-window: `events` of its trace, bounded as
-    `window_bounds` says, holding `units` DG cycles or requests."""
+    `window_bounds` says, holding `units` DG cycles or requests, whose
+    kernels the kernel files `kernel_ids` (the cell's,
+    common.cell_kernels; None: every file) claim before the generic
+    categories."""
 
-    def __init__(self, events, units: int):
+    def __init__(self, events, units: int, kernel_ids=None):
         self.lo, self.hi = window_bounds(events)
         self.units = units
+        self.kernel_ids = kernel_ids
         self.device = [e for e in events if e.get("cat") in DEVICE_CATS
                        and self.lo <= float(e["ts"]) < self.hi]
         self.host = sorted((e for e in events if e.get("cat") in HOST_CATS),
@@ -122,7 +126,14 @@ class Profile:
         return out
 
     def category_s(self) -> collections.Counter:
-        return self.device_s_by(kernels.category)
+        return self.device_s_by(
+            lambda name: kernels.category(name, self.kernel_ids))
+
+    def kernel_s(self) -> collections.Counter:
+        """Device seconds by the id of the port's kernel that claims each
+        kernel (None: none of them)."""
+        return self.device_s_by(
+            lambda name: kernels.kernel_id(name, self.kernel_ids))
 
     def breakdown(self, named: "Profile", n: int = 10) -> dict:
         """The device operations with the most time in this sub-window and

@@ -14,9 +14,14 @@ The check: after the window, with the program's state freed, the plain
 reference, computing in the precision the configuration states, starts
 from the same weights and follows the first three pairs on the same
 batches and draws. Compared are each half's loss, the first pair's
-update as the optimizer took it (SGD: the parameters' change over the
-learning rate; Adam: the first moment over 1 - b1), per leaf, and the
-parameters' change after three pairs, per leaf (compare.py)."""
+update as the optimizer took it (build.first_update; SGD: the
+parameters' change over the learning rate; Adam: the first moment over
+1 - b1), per leaf, and the parameters' change after three pairs, per leaf
+(compare.py).
+
+What belongs to the architecture (its models and draws) comes from the
+configuration's builder (common.builder); the optimizer takes the
+configuration's whole `optimizer` object (build.opt_config)."""
 
 from __future__ import annotations
 
@@ -25,7 +30,7 @@ import time
 import numpy as np
 import torch
 
-from . import compare, models, synthetic
+from . import build, common, compare, models, synthetic
 from .common import Spans
 from .timing import synchronize
 
@@ -54,56 +59,35 @@ def to_device(batch: dict, device) -> dict:
 
 
 def draw_maker(config: dict, batch: int, max_gt: int, device, seed: int):
-    """-> draws(with_rpn): the sampling priorities of one loss evaluation
-    (uniform [0, 1) on the card from the benchmark's generator, in the
-    order and shapes of DGFRCNNModel.make_draws), a 4-tuple; FCOS samples
-    nothing (None)."""
-    if config["family"] != "FRCNN":
-        return lambda with_rpn: None
-    from .kernels import frcnn_anchor_counts
-
-    counts = frcnn_anchor_counts(tuple(config["canvas"]))
-    f = config["frcnn"]
-    n_prop = min(f["rpn_post_nms_train"],
-                 sum(min(f["rpn_pre_nms_train"], c) for c in counts))
-    gen = torch.Generator(device=device).manual_seed(2 * seed + 1)
-
-    def uniform(n):
-        return torch.rand((batch, n), generator=gen, device=device)
-
-    def draws(with_rpn):
-        rpn = ((uniform(sum(counts)), uniform(sum(counts))) if with_rpn
-               else (None, None))
-        return (*rpn, uniform(n_prop + max_gt), uniform(n_prop + max_gt))
-
-    return draws
+    """-> draws(with_rpn): the sampling priorities of one loss evaluation,
+    drawn on the device from the benchmark's generator, as the builder
+    makes them (None where the model samples nothing)."""
+    return common.builder(config).draw_maker(config, batch, max_gt, device,
+                                             seed)
 
 
 class TrainSide:
     """A model with its optimizer state and fused pair steps, from the
-    program's package or the reference's (`steps`, `optim`)."""
+    program's package or the reference's (`steps`, `optim`; `side`
+    "program" or "reference"), its optimizer configured from the
+    configuration's `optimizer` object and its draws wrapped by the
+    configuration's builder."""
 
-    def __init__(self, model, steps, optim, config: dict, draws_cls):
-        opt = config["optimizer"]
+    def __init__(self, model, steps, optim, config: dict, side: str):
         self.model = model
-        self.kind = opt["kind"]
-        self.lr = float(opt["lr"])
-        self.b1 = optim.OptConfig("adam").b1
-        opt_config = optim.OptConfig(opt["kind"],
-                                     weight_decay=opt["weight_decay"])
+        self.lr = float(config["optimizer"]["lr"])
+        self.opt_config = build.opt_config(optim, config)
         self.opt_state = optim.init_opt_state(
-            dict(model.named_parameters()), opt_config)
+            dict(model.named_parameters()), self.opt_config)
         reg = tuple(config["reg_weights"])
-        self.steps = {k: steps.make_pair_step(model, k, reg, opt_config,
-                                              self.lr)
+        self.steps = {k: steps.make_pair_step(model, k, reg,
+                                              self.opt_config, self.lr)
                       for k in (1, 2, 3, 4)}
-        self.draws_cls = draws_cls
+        self.wrap = common.builder(config).wrap_draws(side)
 
     def pair(self, k: int, batch: dict, d0, dk) -> dict:
-        wrap = (lambda d: d) if self.draws_cls is None else (
-            lambda d: self.draws_cls(*d))
         self.opt_state, metrics = self.steps[k](self.opt_state, batch,
-                                                wrap(d0), wrap(dk))
+                                                self.wrap(d0), self.wrap(dk))
         return metrics
 
     def _norms(self, tensors: dict) -> dict:
@@ -112,14 +96,8 @@ class TrainSide:
         return dict(zip(names, values.tolist()))
 
     def first_update(self, init: dict) -> dict:
-        """Per leaf, the first update as the optimizer took it (SGD: the
-        change over the learning rate; Adam: the first moment over
-        1 - b1)."""
-        if self.kind == "sgd":
-            params = dict(self.model.named_parameters())
-            return {n: (init[n] - p.detach()) / self.lr
-                    for n, p in params.items()}
-        return {n: m / (1 - self.b1) for n, m in self.opt_state["mu"].items()}
+        """Per leaf, the first update as the optimizer took it."""
+        return build.first_update(self, init)
 
     def change(self, init: dict) -> dict:
         params = dict(self.model.named_parameters())
@@ -127,25 +105,21 @@ class TrainSide:
 
 
 def program_side(config: dict, device, state: dict) -> TrainSide:
-    from dgod_tpu_torch.models import dg_frcnn
     from dgod_tpu_torch.train import optim, steps
 
     model = models.program_model(config, device)
     models.load_state(model, state)
-    return TrainSide(model, steps, optim, config,
-                     dg_frcnn.Draws if config["family"] == "FRCNN" else None)
+    return TrainSide(model, steps, optim, config, "program")
 
 
 def reference_side(config: dict, device, state: dict, fp8: bool = False,
                    dtype=None) -> TrainSide:
-    from ..reference.models import dg_frcnn
     from ..reference.train import optim, steps
 
     model = models.reference_model(config, device, fp8=fp8, dtype=dtype)
     models.load_state(model, state)
     model.grad_log = []
-    return TrainSide(model, steps, optim, config,
-                     dg_frcnn.Draws if config["family"] == "FRCNN" else None)
+    return TrainSide(model, steps, optim, config, "reference")
 
 
 def first_pairs(side: TrainSide, plan, init: dict) -> dict:

@@ -8,7 +8,8 @@ Departures from the copied code, each marked where it is made:
 - every op takes its plain version on every device (RoIAlign, the RPN's
   decode and NMS, the IoU and FCOS matchers, the first-k NMS): no kernel;
 - the initialisers record each leaf's standard deviation and draw nothing
-  (`models/layers.py`); perfbench/bench/weights.py makes the weights;
+  (`models/layers.py`); perfbench/bench/models.py::make_state makes the
+  weights;
 - Conv and Dense round their operands to float8 e4m3 where `fp8` is set on
   them (the precision control);
 - `train/steps.py::_half` logs each half's gradient norms per leaf where the

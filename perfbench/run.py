@@ -42,12 +42,14 @@ def kind_module(traffic: dict):
     return kinds[traffic["kind"]]
 
 
-def profile_units(kind, s, units: int, device, cpu_ops: bool):
+def profile_units(kind, s, units: int, device, cpu_ops: bool,
+                  kernel_ids: tuple):
     """Record `units` DG cycles or requests under torch.profiler, from a
     synchronised start to a synchronised end. `cpu_ops`: the host's
     operations too (they cost the host some microseconds each, which
     stretches the window), else the device and the CUDA runtime alone.
-    -> (trace.Profile, the port's kernel launches in the sub-window)."""
+    `kernel_ids`: the port's kernels of the cell (common.cell_kernels).
+    -> (trace.Profile, the launches of those kernels in the sub-window)."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
     from perfbench.bench import trace
@@ -59,34 +61,30 @@ def profile_units(kind, s, units: int, device, cpu_ops: bool):
         activities.append(ProfilerActivity.CPU)
     if device.type == "cuda":
         activities.append(ProfilerActivity.CUDA)
-    before = launch_counts()
+    before = launch_counts(kernel_ids)
     with profile(activities=activities) as prof:
         synchronize(device)
         with record_function(trace.WINDOW_MARK):
             kind.profiled_units(s, units, Spans(False))
             synchronize(device)
-    after = launch_counts()
+    after = launch_counts(kernel_ids)
     path = Path(tempfile.gettempdir()) / f"perfbench_trace.{os.getpid()}.json"
     prof.export_chrome_trace(str(path))
     try:
         events = trace.load(path)
     finally:
         path.unlink()
-    return (trace.Profile(events, units),
+    return (trace.Profile(events, units, kernel_ids),
             {k: after[k] - before[k] for k in after})
 
 
-def launch_counts() -> dict:
-    """The port's own counters of its kernel launches, K1-K6."""
-    from dgod_tpu_torch.ops import (cuda_matchers, cuda_nms, cuda_proposals,
-                                    cuda_roi_align)
+def launch_counts(kernel_ids: tuple) -> dict:
+    """The port's own counters of the launches of the kernels
+    `kernel_ids`, read through their files (common.kernel_files)."""
+    from perfbench.bench import common
 
-    return {"K1": cuda_roi_align.fwd_launches,
-            "K2": cuda_roi_align.bwd_launches,
-            "K3": cuda_matchers.launches,
-            "K4": cuda_matchers.fcos_launches,
-            "K5": cuda_proposals.launches,
-            "K6": cuda_nms.launches}
+    return {kid: k.launches()
+            for kid, k in common.kernel_files(kernel_ids).items()}
 
 
 def run_cell(cell: dict, seed: int, seconds: float, traced: bool, device,
@@ -96,7 +94,7 @@ def run_cell(cell: dict, seed: int, seconds: float, traced: bool, device,
     process started (set-up's clock)."""
     import torch
 
-    from perfbench.bench import common, flops, kernels
+    from perfbench.bench import common, kernels
     from perfbench.bench.common import Spans
     from perfbench.bench.timing import describe
 
@@ -116,13 +114,13 @@ def run_cell(cell: dict, seed: int, seconds: float, traced: bool, device,
             metrics[m["name"]] = {"value": values[m["name"]],
                                   "unit": m["unit"]}
     else:
+        ids = common.cell_kernels(cell["config"], kind.PATH, root)
         prof, launches = profile_units(kind, s, cell["traffic"][
-            "profiled_units"], device, cpu_ops=False)
+            "profiled_units"], device, cpu_ops=False, kernel_ids=ids)
         named, _ = profile_units(kind, s, cell["traffic"]["named_units"],
-                                 device, cpu_ops=True)
+                                 device, cpu_ops=True, kernel_ids=ids)
         ctx = Context(cell=cell, s=s, window=w, spans=spans, profile=prof,
-                      launches=launches, path=kind.PATH, flops=flops,
-                      kernels=kernels)
+                      launches=launches, path=kind.PATH, kernels=kernels)
         for m in cell["per_layer"]:
             value = common.metric_reader(m["name"], root)(ctx)
             if value is not None:
@@ -150,8 +148,9 @@ class Context:
     """What a per-layer metric's reader reads: the cell (`cell`, with its
     `config` and `traffic`), the set-up and window (`s`, `window`), the
     spans, the profiled sub-window (`profile`, a trace.Profile, and the
-    port's kernel `launches` in it), the driver's `path` ('train' or
-    'predict'), and the yardstick's `flops` and `kernels`."""
+    launches of the cell's kernels in it), the driver's `path` ('train' or
+    'predict'), and the yardstick's `kernels`; the configuration's FLOP
+    count is its builder's (readers.py)."""
 
     def __init__(self, **kw):
         self.__dict__.update(kw)

@@ -1,10 +1,13 @@
 """The cells as the driver runs them, at a CPU size: the traffic is the
 same for the same seed, the last line keeps its schema, a configuration,
-mix and metric added as files alone are run, nothing of JAX is loaded, and
-a run with the timed path broken reads `correct` false."""
+mix and metric added as files alone are run, so is a new architecture with
+its builder, reference, FLOP count and kernel, nothing of JAX is loaded,
+and a run with the timed path broken reads `correct` false."""
 
+import hashlib
 import io
 import json
+import os
 import shutil
 import subprocess
 import sys
@@ -131,6 +134,183 @@ def test_perfbench_added_files_run(tmp_path):
                                  root=tmp_path, cell=cell)
     assert result["metrics"]["pairs_per_cycle.train"]["value"] == 4.0
     assert result["correct"] is True
+
+
+NEW_ARCH = Path(__file__).resolve().parent / "new_arch"
+OLD_CELL = "frcnn-dg_train"
+# traced tiny runs from a tree that holds the copy of perfbench first on the
+# path (and, for the new architecture, the program's stand-in module): an
+# existing cell, then, where the tree has it, the new architecture's
+NEW_ARCH_RUN = """
+import json, sys, types
+sys.path[:0] = [%r, %r]
+from perfbench import run
+from perfbench.bench import common, kernels, readers, trace, train
+from perfbench.tests.tiny import run_tiny
+
+seen, contexts, optimizers = [], [], []
+mfu = readers.mfu_percent
+readers.mfu_percent = lambda ctx, f: (seen.append(f), mfu(ctx, f))[1]
+side_init = train.TrainSide.__init__
+
+
+def init(self, *a, **k):
+    side_init(self, *a, **k)
+    optimizers.append(self.opt_config._asdict())
+
+
+train.TrainSide.__init__ = init
+files, asked = common.kernel_files, set()
+
+
+def kernel_files(ids=None, *a, **k):
+    asked.update(ids or ["every file"])
+    return files(ids, *a, **k)
+
+
+common.kernel_files = kernel_files
+
+
+class Context(run.Context):
+    def __init__(self, **kw):
+        super().__init__(**kw)
+        contexts.append(self)
+
+
+run.Context = Context
+result, checks, _ = run_tiny(%r, traced=True)
+ctx = contexts[0]
+old = dict(correct=result["correct"], metrics=sorted(result["metrics"]),
+           checks=checks, launches=ctx.launches,
+           kernel_ids=ctx.profile.kernel_ids,
+           loaded=sorted(asked), stand_in="tinyvit_port" in sys.modules)
+if "tinyvit-dg_train" not in [w["name"] for w in ctx.cell["bench"][
+        "workloads"]]:
+    print(json.dumps(dict(old=old)))
+    sys.exit(0)
+seen.clear()
+optimizers.clear()
+result, checks, _ = run_tiny("tinyvit-dg_train", traced=True)
+ctx = contexts[1]
+b = common.builder(ctx.config)
+# the roofline of the run's launches over a device trace in which one
+# K9 kernel ran for 5 us (the CPU's trace holds no device time)
+profile = trace.Profile([
+    {"cat": "user_annotation", "name": trace.WINDOW_MARK, "ts": 0,
+     "dur": 100},
+    {"cat": "kernel", "name": "tiny_attention_kernel<float>", "ts": 10,
+     "dur": 5}], 1, ctx.profile.kernel_ids)
+roofline = readers.kernel_roofline_percent(
+    types.SimpleNamespace(**dict(vars(ctx), profile=profile)))
+print(json.dumps(dict(
+    old=old, result=result, flops_seen=seen,
+    builder_flops=b.train_flops_per_image(ctx.config, ctx.s.batch),
+    frcnn_flops=common.builder({"family": "FRCNN"}).train_flops_per_image(
+        dict(ctx.config, backbone_block_counts=[1, 1, 1, 1]), ctx.s.batch),
+    launches=ctx.launches, roofline=roofline,
+    k9_bound_s=kernels.bound_s("K9", "train", ctx.config, ctx.s.batch,
+                               ctx.s.max_gt),
+    optimizers=optimizers)))
+"""
+
+
+def _run_in(tree: Path) -> dict:
+    """NEW_ARCH_RUN in a fresh process from `tree`: its last line."""
+    out = subprocess.run(
+        [sys.executable, "-c", NEW_ARCH_RUN % (str(tree), str(ROOT),
+                                               OLD_CELL)],
+        capture_output=True, text=True, timeout=600, cwd=tree)
+    assert out.returncode == 0, out.stderr[-3000:]
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+def _digests(root: Path) -> dict:
+    return {str(p.relative_to(root)): hashlib.sha256(p.read_bytes()).digest()
+            for p in sorted(root.rglob("*")) if p.is_file()
+            and "__pycache__" not in p.parts}
+
+
+def test_perfbench_new_architecture_added_files_run(tmp_path):
+    """An architecture the harness has never seen, a plain-ViT backbone
+    under DG Faster R-CNN's heads, enters as added files and appended
+    entries alone: its builder, reference module, FLOP count, a kernel file
+    (K9) whose counter its model raises, a configuration, a cell and its
+    limits. A traced tiny run reads `correct` true, takes step_mfu.train
+    from the builder's FLOPs and counts K9's launches in
+    kernel_roofline.train; no file that was there before changes."""
+    shutil.copytree(ROOT / "perfbench", tmp_path / "perfbench",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    shutil.copy(ROOT / "BENCHMARK.json", tmp_path / "BENCHMARK.json")
+    before = _digests(tmp_path)
+    added = [p.relative_to(NEW_ARCH) for p in sorted(NEW_ARCH.rglob("*"))
+             if p.is_file() and "__pycache__" not in p.parts]
+    for rel in added:
+        assert not (tmp_path / rel).exists(), rel
+        (tmp_path / rel).parent.mkdir(parents=True, exist_ok=True)
+        shutil.copy(NEW_ARCH / rel, tmp_path / rel)
+    old = json.loads((ROOT / "BENCHMARK.json").read_text())
+    bench = json.loads(json.dumps(old))
+    bench["configs"].append({
+        "name": "tinyvit_dg", "source": "https://arxiv.org/abs/2203.16527",
+        "file": "perfbench/configs/tinyvit_dg.json", "reduced": [],
+        "why": "a test"})
+    bench["workloads"].append({"name": "tinyvit-dg_train",
+                               "config": "tinyvit_dg", "traffic": "dg_train",
+                               "chips": 1, "why": "a test"})
+    for m in bench["end_to_end"] + bench["per_layer"]:
+        if m["name"] in ("train_images_per_s", "step_mfu.train",
+                         "kernel_roofline.train"):
+            m["workloads"].append("tinyvit-dg_train")
+    (tmp_path / "BENCHMARK.json").write_text(json.dumps(bench))
+    got = _run_in(tmp_path)
+    # an existing cell reads in the tree with the new files as it reads
+    # without them: the same checks and launch counts, its own kernels'
+    # files alone loaded and claiming its kernels' names
+    assert got["old"] == _run_in(ROOT)["old"]
+    ids = common.cell_kernels(tiny_cell(OLD_CELL)["config"], "train")
+    assert got["old"]["kernel_ids"] == list(ids)
+    assert sorted(got["old"]["launches"]) == list(ids)
+    assert got["old"]["loaded"] == list(ids)
+    assert got["old"]["stand_in"] is False
+    assert got["old"]["correct"] is True
+    # the builders' and kernel files' tests hold in the tree with K9
+    tests = subprocess.run(
+        [sys.executable, "-m", "pytest", "-q", "-p", "no:cacheprovider",
+         "perfbench/tests/test_perfbench_builders.py"],
+        capture_output=True, text=True, timeout=600, cwd=tmp_path,
+        env=dict(os.environ, PYTHONPATH=os.pathsep.join(
+            [str(tmp_path), str(ROOT)])))
+    assert tests.returncode == 0, tests.stdout[-3000:]
+    assert " passed" in tests.stdout and "failed" not in tests.stdout
+    result = got["result"]
+    assert result["correct"] is True, result
+    # kernel_roofline.train reads nothing: the CPU's trace holds no device
+    # time; it is read below over a device trace of K9
+    assert set(result["metrics"]) == {"step_mfu.train"}
+    assert got["flops_seen"] == [got["builder_flops"]]
+    assert got["builder_flops"] != got["frcnn_flops"]
+    assert result["metrics"]["step_mfu.train"]["value"] > 0
+    assert got["launches"]["K9"] > 0
+    assert got["roofline"] == pytest.approx(
+        100.0 * got["launches"]["K9"] * got["k9_bound_s"] / 5e-6)
+    # the optimizer object passed whole: the program's side and the
+    # reference's take the configuration's b2
+    assert [o["kind"] for o in got["optimizers"]] == ["adam", "adam"]
+    assert [o["b2"] for o in got["optimizers"]] == [0.99, 0.99]
+    # no file that was there changed; BENCHMARK.json only gained entries
+    after = _digests(tmp_path)
+    changed = {k for k in before if after.get(k) != before[k]}
+    assert changed == {"BENCHMARK.json"}, changed
+    for key, value in old.items():
+        if not isinstance(value, list):
+            assert bench[key] == value
+            continue
+        for a, b in zip(value, bench[key]):
+            if isinstance(a, dict):  # entries kept; `workloads` appended to
+                a, b = dict(a), dict(b)
+                head = b.pop("workloads", [])[:len(a.get("workloads", []))]
+                assert head == a.pop("workloads", [])
+            assert a == b
 
 
 def test_perfbench_forbidden_names_compare_whole():

@@ -1,7 +1,7 @@
 """A cell of BENCHMARK.json at a size a CPU test can hold: the canvas
-64x128, ResNet blocks (1,1,1,1), float32, FRCNN sampling and proposals as
-the port's CPU tests size them; the batch and pool small. Only the sizes
-change: the drivers, readers and checks are the run's own."""
+64x128, float32, and the CPU sizes of the configuration's builder (its
+`tiny`); the batch and pool small. Only the sizes change: the training
+and predict loops, readers and checks are the run's own."""
 
 from __future__ import annotations
 
@@ -13,12 +13,8 @@ from perfbench.bench import common
 def tiny_cell(name: str, root=common.ROOT) -> dict:
     cell = common.load_cell(name, root)
     c = cell["config"]
-    c.update(canvas=[64, 128], backbone_block_counts=[1, 1, 1, 1],
-             compute_dtype="float32")
-    if c["family"] == "FRCNN":
-        c["frcnn"].update(rpn_pre_nms_train=256, rpn_pre_nms_test=256,
-                          rpn_post_nms_train=256, rpn_post_nms_test=32,
-                          rpn_batch_per_image=64, box_batch_per_image=64)
+    c.update(canvas=[64, 128], compute_dtype="float32")
+    common.builder(c, root).tiny(c)
     t = cell["traffic"]
     if t["kind"] == "train":
         t.update(batch=2, max_gt=32, warm_cycles=0, profiled_units=1,
