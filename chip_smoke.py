@@ -23,7 +23,13 @@ Phases, each of which fails the run (non-zero exit) on any fault:
    entry more than it holds, before any launch; then
    run a small float32 model of each family on the card and
    on the CPU with the same weights, batch and random draws and require
-   the same losses;
+   the same losses; K7 and K8, ViTDet's fused attention with decomposed
+   relative positions (CUDA C++), forward and backward against the plain
+   version at the ViTDet-B cell's window and global shapes in bf16, each
+   no further from float32 than the plain version computed in bf16, timed
+   beside it and beside PyTorch's scaled_dot_product_attention with the
+   bias materialised (`library_ms`, the yardstick; the port never calls
+   it);
 4. train: the full-width DG Faster R-CNN (ResNet-50 (3,4,6,3), 608x1216,
    default FRCNNConfig, 3 domains, bf16, batch 8, random weights from a
    seed) runs two DG cycles of fused pairs (0,1), (0,2), (0,3), (0,4) under
@@ -119,6 +125,13 @@ Phases, each of which fails the run (non-zero exit) on any fault:
 Each family's main path also reports its second DG cycle's images/s and
 MFU (`utils.flops.train_mfu`, against the H100 SXM's dense bf16 peak).
 
+14. ViTDet-B under DG Faster R-CNN (`--backbone vitdet_b`), run after the
+   main paths: the full-width model (bf16, batch 8, Adam) runs two DG
+   cycles with every loss finite, 12 K7 launches in each half and 12 K8
+   in each half that trains the backbone (all but mode 2's); then the eval
+   step at batch 1 serves a CUDA graph's replay whose detections are the
+   eager call's, bit for bit.
+
 Output: one line per phase, then the card's name and power limit, then one
 JSON line {"kernels": [...]} (times, errors, bounds, and the launches of
 the two main paths, phases 4-7; phases 8-13 print theirs on lines of
@@ -148,6 +161,7 @@ if __name__ != "__mp_main__":
 # H100 SXM published peaks (NVIDIA data sheet, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12  # float32 outside the tensor cores
+BF16_FLOPS = 989.4e12  # dense bf16 on the tensor cores
 
 # The previous designs' times on an NVIDIA H100 80GB HBM3 at 700 W, at the
 # same shapes: K1 as one block per RoI with a thread per channel, K2 as an
@@ -875,6 +889,135 @@ def check_proposals(dev, report):
     report["K5"]["max_abs_err"] = max_err
 
 
+# ViTDet-B's attentions at the cell's shapes: (batch of attentions, grid)
+ATTENTIONS = {"window": (B * 18, (14, 14)), "global": (B, (38, 76))}
+HEADS, HEAD_DIM = 12, 64
+
+
+def attention_inputs(dev, n_att, grid, seed):
+    """bf16 qkv [n_att, N, 3, 12, 64] and float32 q R_h, q R_w at ViTDet's
+    magnitudes (unit q, k, v; logits of unit spread)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    kh, kw = grid
+    n = kh * kw
+    qkv = torch.randn((n_att, n, 3, HEADS, HEAD_DIM), generator=gen,
+                      device=dev).to(torch.bfloat16)
+    rel = [0.5 * torch.randn((n_att, HEADS, n, k), generator=gen, device=dev)
+           for k in grid]
+    return qkv, rel[0], rel[1]
+
+
+def check_relpos_attention(dev, report):
+    """K7 and K8 at the window and global shapes against the plain version
+    in float32 (the truth) and in bf16 (the precision's own error): each
+    output and gradient of the kernels lies no further from float32 than
+    twice the plain bf16 version's, or 1e-3 of its largest value. Times at
+    both shapes; report the global shape's (it dominates), with the plain
+    version's and SDPA's over the materialised bias."""
+    import torch.nn.functional as F
+
+    from dgod_tpu_torch.ops import cuda_attention as K
+    from dgod_tpu_torch.ops.attention import relpos_attention_plain
+    from dgod_tpu_torch.utils.timing import device_time_ms
+
+    scale = HEAD_DIM ** -0.5
+    for name, (n_att, grid) in ATTENTIONS.items():
+        qkv, rel_h, rel_w = attention_inputs(dev, n_att, grid, 0)
+        n = qkv.shape[1]
+        g = torch.randn((n_att, n, HEADS, HEAD_DIM), device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(1)
+                        ).to(torch.bfloat16)
+        ins = [qkv, rel_h, rel_w]
+        leaves = {}
+        for side, cast in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+            xs = [qkv.to(cast).requires_grad_(True),
+                  rel_h.clone().requires_grad_(True),
+                  rel_w.clone().requires_grad_(True)]
+            out = relpos_attention_plain(*xs, scale)
+            grads = torch.autograd.grad(out, xs, g.to(out.dtype))
+            leaves[side] = [out.detach().float()] + [t.float() for t in grads]
+            del out, grads, xs
+        out, lse = K.relpos_attention_fwd_cuda(qkv, rel_h, rel_w, scale)
+        got = [out.float()] + [t.float() for t in K.relpos_attention_bwd_cuda(
+            qkv, rel_h, rel_w, out, lse, g, scale)]
+        torch.cuda.synchronize()
+        errs = {}
+        for what, a, truth, plain in zip(("out", "dqkv", "drel_h", "drel_w"),
+                                         got, leaves["f32"], leaves["bf16"]):
+            err = float((a - truth).abs().max())
+            plain_err = float((plain - truth).abs().max())
+            top = float(truth.abs().max())
+            errs[what] = err
+            print(f"K7/K8 {name} {what}: max_abs_err={err:.3e} (plain bf16 "
+                  f"{plain_err:.3e}; largest {top:.3e})")
+            if not torch.isfinite(a).all() \
+                    or err > max(2 * plain_err, 1e-3 * top):
+                fail(f"K7/K8 disagree with the plain version at the {name} "
+                     f"shape ({what})")
+        # through autograd as on the main path
+        xs = [t.detach().requires_grad_(True) for t in ins]
+        via = torch.autograd.grad(K.relpos_attention_cuda(*xs, scale), xs, g)
+        for a, b in zip(via, got[1:]):
+            if not torch.equal(a.float(), b):
+                fail(f"K7/K8 through autograd differ from the direct calls "
+                     f"({name})")
+        del leaves, got, via
+        fwd_ms = device_time_ms(lambda: K.relpos_attention_fwd_cuda(
+            qkv, rel_h, rel_w, scale), dev)
+        bwd_ms = device_time_ms(lambda: K.relpos_attention_bwd_cuda(
+            qkv, rel_h, rel_w, out, lse, g, scale), dev)
+        xs = [qkv.detach().requires_grad_(True), rel_h, rel_w]
+        plain_fwd = device_time_ms(lambda: relpos_attention_plain(
+            *xs, scale), dev, iters=3)
+        plain_out = relpos_attention_plain(*xs, scale)
+        plain_bwd = device_time_ms(lambda: torch.autograd.grad(
+            plain_out, xs[0], g, retain_graph=True), dev, iters=3)
+        del plain_out
+        # SDPA, the library's fused attention, over the bias materialised
+        # in bf16 (a float mask): q, k, v [n_att, heads, N, D]
+        kh, kw = grid
+        idx = torch.arange(n, device=dev)
+        bias = (rel_h[..., idx // kw] + rel_w[..., idx % kw]).to(
+            torch.bfloat16)
+        q, k, v = [t.detach().requires_grad_(True)
+                   for t in qkv.permute(2, 0, 3, 1, 4).unbind(0)]
+        lib_fwd = device_time_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=bias), dev)
+        lib_out = F.scaled_dot_product_attention(q, k, v, attn_mask=bias)
+        gt = g.transpose(1, 2)
+        lib_bwd = device_time_ms(lambda: torch.autograd.grad(
+            lib_out, (q, k, v), gt, retain_graph=True), dev)
+        del lib_out, bias
+        att = n_att * HEADS
+        rel_bytes = att * n * (kh + kw) * 4
+        flops = att * 2.0 * n * n * HEAD_DIM  # one product
+        # bound: q, k, v (and the backward's output, its gradient and dq,
+        # dk, dv) in bf16, q R_h, q R_w (and their gradients), the
+        # log-sum-exp, against 2 (forward) or 5 (backward) products
+        bounds = {
+            "K7": max((att * n * (4 * HEAD_DIM * 2 + 4) + rel_bytes)
+                      / HBM_BYTES_PER_S, 2 * flops / BF16_FLOPS),
+            "K8": max((att * n * (8 * HEAD_DIM * 2 + 4) + 2 * rel_bytes)
+                      / HBM_BYTES_PER_S, 5 * flops / BF16_FLOPS)}
+        for kid, ms, plain, lib in (("K7", fwd_ms, plain_fwd, lib_fwd),
+                                    ("K8", bwd_ms, plain_bwd, lib_bwd)):
+            bound = bounds[kid] * 1e3
+            print(f"{kid} {name} (B={n_att} N={n}): {ms:.3f} ms, bound "
+                  f"{bound:.3f} ({100 * bound / ms:.1f}%); plain "
+                  f"{plain:.3f}, SDPA {lib:.3f}")
+        if name == "global":
+            report["K7"] = dict(ms=fwd_ms, plain_ms=plain_fwd,
+                                library_ms=lib_fwd, max_abs_err=errs["out"],
+                                bound_ms=bounds["K7"] * 1e3)
+            report["K8"] = dict(ms=bwd_ms, plain_ms=plain_bwd,
+                                library_ms=lib_bwd,
+                                max_abs_err=max(errs["dqkv"], errs["drel_h"],
+                                                errs["drel_w"]),
+                                bound_ms=bounds["K8"] * 1e3)
+        del qkv, rel_h, rel_w, out, lse, g, q, k, v
+        torch.cuda.empty_cache()
+
+
 def check_small_model_card_vs_cpu(dev, family):
     """A small float32 model on the card (kernels) and on the CPU (plain
     versions), same weights, batch and draws: the losses must agree."""
@@ -919,6 +1062,77 @@ def changed_groups(model, labels, before):
         if not torch.equal(before[n], p.detach()):
             changed.add(labels[n])
     return changed
+
+
+def run_vitdet_phase(dev):
+    """Phase 14: DG Faster R-CNN on ViTDet-B at full width (608x1216, bf16,
+    batch 8, Adam at 1e-4, random weights from a seed): two DG cycles, each
+    loss finite and each half launching K7 12 times and K8 12 times where
+    it trains the backbone; the second cycle's images/s. Then the eval step
+    at batch 1: the first call eager, the second captured as a CUDA graph,
+    the third replayed; both graph calls give the eager detections bit for
+    bit. -> the K7 and K8 launches of the cycles."""
+    from dgod_tpu_torch.models.dg_frcnn import DGFRCNNModel, batch_to_torch
+    from dgod_tpu_torch.ops import cuda_attention as K
+    from dgod_tpu_torch.train import eval_graphs
+    from dgod_tpu_torch.train import steps as S
+    from dgod_tpu_torch.train.optim import init_opt_state
+    from dgod_tpu_torch.utils.synthetic import synthetic_batch
+
+    t = time.perf_counter()
+    model = DGFRCNNModel(num_classes=9, num_domains=3, canvas=CANVAS,
+                         compute_dtype=torch.bfloat16, device=dev, seed=0,
+                         backbone="vitdet_b")
+    batch = batch_to_torch(synthetic_batch(np.random.RandomState(5), B,
+                                           CANVAS, 3), dev)
+    opt_config, lr = S.make_optimizer("FRCNN", model.detector.backbone)
+    opt_state = init_opt_state(dict(model.named_parameters()), opt_config)
+    steps = {k: S.make_pair_step(model, k, REG_WEIGHTS, opt_config, lr)
+             for k in (1, 2, 3, 4)}
+    gen = torch.Generator(device=dev).manual_seed(0)
+    g = batch["boxes"].shape[1]
+    launches = {"K7": 0, "K8": 0}
+    for cycle in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for k, step in steps.items():
+            before = (K.fwd_launches, K.bwd_launches)
+            opt_state, metrics = step(
+                opt_state, batch, model.make_draws(B, g, gen, True),
+                model.make_draws(B, g, gen, False))
+            got = (K.fwd_launches - before[0], K.bwd_launches - before[1])
+            if got != (24, 12 if k == 2 else 24):
+                fail(f"ViTDet pair (0,{k}) launched K7, K8 {got} times")
+            launches["K7"] += got[0]
+            launches["K8"] += got[1]
+            losses = (float(metrics["loss0"]), float(metrics["loss"]))
+            if not all(np.isfinite(losses)):
+                fail(f"ViTDet pair (0,{k}): losses {losses}")
+        torch.cuda.synchronize()
+        img_s = 2 * B * len(steps) / (time.perf_counter() - t0)
+        peak = torch.cuda.max_memory_allocated(dev) / 2**30
+        print(f"ViTDet cycle {cycle}: {img_s:.1f} images/s, last losses "
+              f"{losses}, peak {peak:.2f} GiB")
+    one = {k: v[:1] for k, v in batch.items()
+           if k in ("image", "image_size", "scale_back")}
+    eval_step = S.make_eval_step(model)
+    captures, replays = eval_graphs.graph_captures, eval_graphs.graph_replays
+    eager = eval_step(one)
+    served = [eval_step(one), eval_step(one)]
+    if (eval_graphs.graph_captures - captures,
+            eval_graphs.graph_replays - replays) != (1, 2):
+        fail("ViTDet predict: the eval step did not serve from one graph")
+    for got in served:
+        for key, value in eager.items():
+            if not torch.equal(got[key], value):
+                fail(f"ViTDet predict: the graph's {key} differ from the "
+                     f"eager call's")
+    print(f"ViTDet predict at batch 1: the graph's replays give the eager "
+          f"detections bit for bit ({int(eager['valid'].sum())} served); "
+          f"phase {time.perf_counter() - t:.1f} s")
+    del model, opt_state, steps, eval_step
+    torch.cuda.empty_cache()
+    return launches
 
 
 def build_main_path(dev, family: str = "FRCNN"):
@@ -2497,6 +2711,7 @@ def main() -> int:
     check_fcos_match(dev, report)
     check_nms_topk(dev, report)
     check_proposals(dev, report)
+    check_relpos_attention(dev, report)
     for family in ("FRCNN", "FCOS"):
         check_small_model_card_vs_cpu(dev, family)
 
@@ -2511,6 +2726,7 @@ def main() -> int:
     for kid, n in counts.items():
         if n <= 0:
             fail(f"{kid} was not launched on the main paths")
+    counts.update(run_vitdet_phase(dev))
     print(f"main paths' launches (the kernels line): {counts}")
     with tempfile.TemporaryDirectory() as root:
         t = time.perf_counter()
@@ -2565,6 +2781,18 @@ def main() -> int:
             "plain_ms": r["plain_ms"], "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": None,
+        })
+    # K7, K8 at the global shape (B=8, N=2,888), bound by the tensor cores
+    for kid, name in (("K7", "relpos_attention_fwd"),
+                      ("K8", "relpos_attention_bwd")):
+        r = report[kid]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "dgod_tpu_torch/csrc/relpos_attention.cu",
+            "replaces": None, "launches": counts[kid],
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": "tensor cores", "library_ms": r["library_ms"],
         })
     print(smi)
     print(json.dumps({"kernels": kernels}))

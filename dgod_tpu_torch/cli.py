@@ -9,10 +9,11 @@ Domain letters map to datasets exactly like datasetsFromArguments
 sequential domain indices in that order. Everything is seeded to 42
 (train_driving_dg.py:112-116).
 
-`main` runs on the card; the CPU is reached only through its `device`
-keyword (tests). `--torch_weights` warm-starts from a torchvision
-checkpoint when no `.ckpt` exists. `--mesh` trains on a data x model mesh
-of ranks, one process per card (parallel/), launched as
+`--backbone vitdet_b` puts ViTDet-B under DG Faster R-CNN in place of
+the ResNet-50 FPN. `main` runs on the card; the CPU is reached only
+through its `device` keyword (tests). `--torch_weights` warm-starts from
+a torchvision checkpoint when no `.ckpt` exists. `--mesh` trains on a
+data x model mesh of ranks, one process per card (parallel/), launched as
 
   torchrun --nproc_per_node 4 train_driving_dg_torch.py --mesh auto ...
 
@@ -34,6 +35,7 @@ import torch
 from .data.dataset import ConcatDataset, DrivingDataset
 from .data.loader import EvalLoader, ProcessTrainLoader, TrainLoader
 from .device import resolve_device
+from .models.backbone import FRCNN_BACKBONES
 from .train.harness import Trainer
 
 DOMAIN_SPECS = {
@@ -56,6 +58,11 @@ def parser_args(argv=None):
                         help="FRCNN or FCOS")
     parser.add_argument("--exp", dest="exp", default="non_dg", type=str,
                         help="non_dg or dg")
+    parser.add_argument("--backbone", default=FRCNN_BACKBONES[0],
+                        choices=FRCNN_BACKBONES,
+                        help="DG Faster R-CNN's backbone: the ResNet-50 FPN "
+                             "or ViTDet-B (window and global attention, "
+                             "simple feature pyramid; Adam at lr 1e-4)")
     parser.add_argument("--source_domains", dest="source_domains",
                         default="ABC", type=str)
     parser.add_argument("--target_domains", dest="target_domains",
@@ -146,6 +153,9 @@ def main(argv=None, device=None):
     """Train, validate, checkpoint and test; returns the test metrics.
     `device=None` means the card (raises without CUDA)."""
     args = parser_args(argv)
+    if args.backbone != FRCNN_BACKBONES[0] and args.model != "FRCNN":
+        raise ValueError(f"--backbone {args.backbone} is DG Faster R-CNN's; "
+                         f"{args.model} runs on the ResNet-50 FPN")
     for flag, item in NOT_PORTED.items():
         if getattr(args, flag):
             raise NotImplementedError(
@@ -196,7 +206,8 @@ def main(argv=None, device=None):
         from .models.dg_frcnn import DGFRCNNModel
 
         model = DGFRCNNModel(num_classes=9, num_domains=num_domains,
-                             canvas=canvas, device=dev, seed=SEED)
+                             canvas=canvas, device=dev, seed=SEED,
+                             backbone=args.backbone)
         val_resize = False  # raw-size val path (train_driving_dg.py:137-138)
     elif args.model == "FCOS":
         from .models.dg_fcos import DGFCOSModel

@@ -1,18 +1,37 @@
 """ResNet-50 + FPN assemblies for each detector (port of
-dgod_tpu/models/backbone.py)."""
+dgod_tpu/models/backbone.py), and DG Faster R-CNN's backbone by name
+(`frcnn_backbone`): the ResNet-50 FPN by default, or ViTDet-B
+(`vitdet.py`)."""
 
 from __future__ import annotations
 
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
 
 from .fpn import FPN, LastLevelP6P7, last_level_max_pool
 from .resnet import ResNet50
+from .vitdet import ViTDetBackbone, ViTDetConfig
+
+# DG Faster R-CNN's backbones, the default first
+FRCNN_BACKBONES = ("resnet50_fpn", "vitdet_b")
 
 
-class FRCNNBackbone(nn.Module):
+class ResNetTraits:
+    """What the code around a backbone reads of it, for the ResNet-50
+    FPNs (ViTDetBackbone sets its own): the blocks whose drop-path
+    uniforms the draws carry, the optimizer (kind, lr, weight decay) in
+    place of the family's, whether tensor parallelism may split the
+    detector's heads over the model axis, and whether --torch_weights can
+    warm-start it."""
+    drop_path_depth = 0
+    optimizer = None
+    splits_over_model_axis = True
+    torchvision_weights = True
+
+
+class FRCNNBackbone(ResNetTraits, nn.Module):
     """NCHW images -> ([P2, P3, P4, P5, pool], {'c2'..'c5'}), NCHW, strides
     4, 8, 16, 32, 64."""
 
@@ -32,7 +51,7 @@ class FRCNNBackbone(nn.Module):
         return ps + [last_level_max_pool(ps[-1])], c
 
 
-class FCOSBackbone(nn.Module):
+class FCOSBackbone(ResNetTraits, nn.Module):
     """NCHW images -> ([P3, P4, P5, P6, P7], {'c2'..'c5'}), NCHW, strides 8,
     16, 32, 64, 128 (C5 feeds the DG image-level classifier)."""
 
@@ -52,3 +71,17 @@ class FCOSBackbone(nn.Module):
         c = self.body(x)
         ps = self.fpn([c["c3"], c["c4"], c["c5"]])
         return ps + list(self.p6p7(ps[-1])), c
+
+
+def frcnn_backbone(name: str, canvas: Tuple[int, int], dtype=torch.float32,
+                   block_counts: Tuple[int, ...] = (3, 4, 6, 3),
+                   vit: Optional[ViTDetConfig] = None) -> nn.Module:
+    """DG Faster R-CNN's backbone `name` (FRCNN_BACKBONES): P2-P5 and the
+    pool level at 256 channels. `block_counts` sizes the ResNet, `vit` the
+    ViTDet (default ViTDet-B)."""
+    if name == "resnet50_fpn":
+        return FRCNNBackbone(dtype=dtype, block_counts=tuple(block_counts))
+    if name == "vitdet_b":
+        return ViTDetBackbone(canvas, vit or ViTDetConfig(), dtype=dtype)
+    raise ValueError(f"no DG Faster R-CNN backbone {name!r}; "
+                     f"choose one of {FRCNN_BACKBONES}")

@@ -11,7 +11,11 @@ reg_weights = [w_imgDA, w_insDA, w_consistency, w_clsPrime, w_cls].
 
 Randomness: the RPN and RoI samplers take uniform priorities from a
 `Draws` tuple, made by `make_draws` from a `torch.Generator` (or handed in
-by a test, from the JAX model's own keys).
+by a test, from the JAX model's own keys); so does ViTDet's drop-path.
+
+The backbone is chosen by name (`backbone.FRCNN_BACKBONES`): the ResNet-50
+FPN by default, or ViTDet-B (`vitdet.py`), whose pixels are normalised by
+the backbone itself and whose drop-path masks come from `Draws.drop_path`.
 """
 
 from __future__ import annotations
@@ -34,6 +38,8 @@ class Draws(NamedTuple):
     rpn_neg: Optional[torch.Tensor]
     roi_pos: torch.Tensor  # [B, Npost + G]
     roi_neg: torch.Tensor
+    # [B, depth, 2]: ViTDet's drop-path uniforms (attention, MLP branch)
+    drop_path: Optional[torch.Tensor] = None
 
 
 def batch_to_torch(batch: Dict, device) -> Dict[str, torch.Tensor]:
@@ -45,7 +51,10 @@ def batch_to_torch(batch: Dict, device) -> Dict[str, torch.Tensor]:
 class DGFRCNNModel(nn.Module):
     """The DG Faster R-CNN. `device=None` means the card (raises without
     CUDA); parameters are float32, drawn from `torch.Generator` seeded with
-    `seed`; the convolutions and the box head compute in `compute_dtype`."""
+    `seed`; the convolutions, the ViT's linear layers and the box head
+    compute in `compute_dtype`. `backbone`: "resnet50_fpn" (sized by
+    `backbone_block_counts`) or "vitdet_b" (sized by `vit`, a
+    `vitdet.ViTDetConfig`, default ViTDet-B)."""
 
     name = "FRCNN"
 
@@ -54,7 +63,7 @@ class DGFRCNNModel(nn.Module):
                  config: FRCNNConfig = None,
                  compute_dtype=torch.bfloat16,
                  backbone_block_counts=(3, 4, 6, 3), device=None,
-                 seed: int = 0):
+                 seed: int = 0, backbone: str = "resnet50_fpn", vit=None):
         super().__init__()
         dev = resolve_device(device)
         self.num_classes = num_classes
@@ -64,7 +73,8 @@ class DGFRCNNModel(nn.Module):
         self.config = config or FRCNNConfig(num_classes=num_classes)
         self.detector = FRCNNDetector(
             self.config, canvas, dtype=compute_dtype,
-            backbone_block_counts=tuple(backbone_block_counts))
+            backbone_block_counts=tuple(backbone_block_counts),
+            backbone=backbone, vit=vit)
         self.image_da = dg_heads.ImageDAFPN(num_domains)
         self.ins_da = dg_heads.frcnn_instance_da(num_domains)
         self.ins_cls = dg_heads.DomainBank(
@@ -86,7 +96,8 @@ class DGFRCNNModel(nn.Module):
                    generator: torch.Generator, with_rpn: bool = True) -> Draws:
         """Sampling priorities for one loss evaluation on a batch padded to
         `num_gt` boxes; `with_rpn` for mode 0, the only mode with an RPN
-        loss. `generator` lives on the model's device."""
+        loss; ViTDet's drop-path uniforms last. `generator` lives on the
+        model's device."""
         cfg = self.config
         n_prop = min(cfg.rpn_post_nms_train,
                      sum(min(cfg.rpn_pre_nms_train, c)
@@ -98,7 +109,13 @@ class DGFRCNNModel(nn.Module):
 
         R = self.detector.anchors.shape[0]
         rpn = (uniform(R), uniform(R)) if with_rpn else (None, None)
-        return Draws(*rpn, uniform(n_prop + num_gt), uniform(n_prop + num_gt))
+        roi = (uniform(n_prop + num_gt), uniform(n_prop + num_gt))
+        depth = self.detector.backbone.drop_path_depth
+        if not depth:
+            return Draws(*rpn, *roi)
+        drop = torch.rand((batch_size, depth, 2), generator=generator,
+                          device=self.device)
+        return Draws(*rpn, *roi, drop)
 
     def pair_targets(self, batch, batch_sum=None) -> Dict[str, torch.Tensor]:
         """Nothing that both halves of a fused pair step share: mode 0's
@@ -117,7 +134,8 @@ class DGFRCNNModel(nn.Module):
                        stop_box_grad: bool = False):
         det = self.detector
         with span("dgod.backbone"):
-            feats, _ = det.features(self.normalize(batch["image"]))
+            feats, _ = det.features(self.normalize(batch["image"]),
+                                    draws.drop_path)
         with span("dgod.rpn"):
             with torch.set_grad_enabled(need_rpn_grad
                                         and torch.is_grad_enabled()):

@@ -34,7 +34,7 @@ from ..ops import matchers
 from ..ops import nms as nms_ops
 from ..ops.proposals import decode_nms
 from ..ops.roi_align import roi_align as multiscale_roi_align
-from .backbone import FRCNNBackbone
+from .backbone import frcnn_backbone
 from .layers import Conv, Dense, init_lecun_normal, init_normal
 
 STRIDES = (4, 8, 16, 32, 64)
@@ -148,13 +148,14 @@ class FRCNNDetector(nn.Module):
     """Faster R-CNN over a static canvas; holds the anchors of the canvas."""
 
     def __init__(self, config: FRCNNConfig = FRCNNConfig(), canvas=(608, 1216),
-                 dtype=torch.float32, backbone_block_counts=(3, 4, 6, 3)):
+                 dtype=torch.float32, backbone_block_counts=(3, 4, 6, 3),
+                 backbone: str = "resnet50_fpn", vit=None):
         super().__init__()
         self.config = config
         self.canvas = tuple(canvas)
         self.dtype = dtype
-        self.backbone = FRCNNBackbone(dtype=dtype,
-                                      block_counts=tuple(backbone_block_counts))
+        self.backbone = frcnn_backbone(backbone, self.canvas, dtype,
+                                       backbone_block_counts, vit)
         self.rpn_head = RPNHead(dtype=dtype)
         self.box_head = TwoMLPHead(dtype=dtype)
         self.predictor = BoxPredictor(config.num_classes + 1)
@@ -171,11 +172,14 @@ class FRCNNDetector(nn.Module):
 
     # -- forward pieces ----------------------------------------------------
 
-    def features(self, images: torch.Tensor):
+    def features(self, images: torch.Tensor, drop_path=None):
         """images [B,H,W,3] float -> ([P2..P5, pool] NHWC, C-levels NCHW).
         The convolutions run NCHW in channels_last memory, so each returned
-        level is a contiguous NHWC view on the card."""
-        feats, c = self.backbone(images.permute(0, 3, 1, 2))
+        level is a contiguous NHWC view on the card. `drop_path`: the
+        backbone's drop-path uniforms (ViTDet's, in training), or None."""
+        x = images.permute(0, 3, 1, 2)
+        feats, c = self.backbone(x, drop_path) \
+            if self.backbone.drop_path_depth else self.backbone(x)
         return [f.permute(0, 2, 3, 1) for f in feats], c
 
     def rpn_forward(self, feats: Sequence[torch.Tensor]):

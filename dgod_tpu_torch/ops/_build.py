@@ -25,7 +25,8 @@ from typing import Dict, Iterable
 PKG = Path(__file__).resolve().parents[1]
 CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "_build"
-SOURCES = ("roi_align", "iou_match", "fcos_match", "nms_topk", "proposals")
+SOURCES = ("roi_align", "iou_match", "fcos_match", "nms_topk", "proposals",
+           "relpos_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 

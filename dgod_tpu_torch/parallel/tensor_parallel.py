@@ -81,7 +81,16 @@ def shard_model(model: torch.nn.Module, mesh: Mesh) -> Dict[str, int]:
     """Split the layers `param_sharding` names over the model group, in
     place: each keeps its local output slice and runs between
     `copy_to_model` and `gather_from_model`. Parameter names do not change.
-    -> the sharding ({name: dim}); empty when the model axis is 1."""
+    -> the sharding ({name: dim}); empty when the model axis is 1. A
+    model whose backbone does not split over the model axis (ViTDet-B) is
+    refused: only the heads would split, and its trunk would stay whole on
+    every rank."""
+    whole = [type(m).__name__ for m in model.modules()
+             if not getattr(m, "splits_over_model_axis", True)]
+    if mesh.model > 1 and whole:
+        raise ValueError(f"tensor parallelism splits the ResNet-50 FPN "
+                         f"detectors' head layers; {whole[0]} takes data "
+                         f"parallelism alone (--mesh data=N)")
     sharding = param_sharding(model, mesh)
     layers = {name.rsplit(".", 1)[0] for name in sharding}
     for path in sorted(layers):

@@ -37,7 +37,8 @@ from typing import Dict
 
 import torch
 
-from ..ops import cuda_matchers, cuda_nms, cuda_proposals, cuda_roi_align
+from ..ops import (cuda_attention, cuda_matchers, cuda_nms, cuda_proposals,
+                   cuda_roi_align)
 from ..parallel.tensor_parallel import holds_split_layers
 from ..utils.logging import span
 
@@ -54,7 +55,9 @@ KERNEL_COUNTERS = ((cuda_roi_align, "fwd_launches"),
                    (cuda_matchers, "launches"),
                    (cuda_matchers, "fcos_launches"),
                    (cuda_proposals, "launches"),
-                   (cuda_nms, "launches"))
+                   (cuda_nms, "launches"),
+                   (cuda_attention, "fwd_launches"),
+                   (cuda_attention, "bwd_launches"))
 
 
 def kernel_counts() -> tuple:

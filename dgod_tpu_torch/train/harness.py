@@ -107,6 +107,10 @@ class Trainer:
         self.gen = torch.Generator(device=self.device).manual_seed(seed)
         self.store = make_store(ckpt_path)
         # a checkpoint to resume from overwrites every tensor anyway
+        backbone = model.detector.backbone
+        if torch_weights and not backbone.torchvision_weights:
+            raise ValueError(f"--torch_weights ports torchvision's ResNet-50 "
+                             f"detectors; {type(backbone).__name__} has none")
         if torch_weights and not self.store.exists():
             sd = weights_lib.load_torch_file(torch_weights)
             family = weights_lib.torchvision_family(sd, model.name)
@@ -114,7 +118,8 @@ class Trainer:
             self._print(f"ported {stats['merged']} tensors from "
                         f"{torch_weights} ({family}); reinitialised: "
                         f"{stats['dropped_class_dependent'] or 'none'}")
-        self.opt_config, self.base_lr = step_lib.make_optimizer(model.name)
+        self.opt_config, self.base_lr = step_lib.make_optimizer(model.name,
+                                                                backbone)
         self.opt_state = init_opt_state(dict(model.named_parameters()),
                                         self.opt_config)
 

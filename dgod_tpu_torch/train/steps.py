@@ -162,9 +162,15 @@ def make_eval_step(model):
     return step
 
 
-def make_optimizer(model_name: str) -> tuple:
+def make_optimizer(model_name: str, backbone=None) -> tuple:
     """Reference hyperparameters: FRCNN SGD(2e-3, wd 5e-4), FCOS Adam(1e-4,
-    wd 1e-4)."""
+    wd 1e-4); `backbone`, the model's backbone module, where its
+    `optimizer` (kind, lr, weight decay) is set, replaces the family's
+    (ViTDet-B: Adam(1e-4, wd 1e-4))."""
+    own = getattr(backbone, "optimizer", None)
+    if own is not None:
+        kind, lr, weight_decay = own
+        return OptConfig(kind, weight_decay=weight_decay), lr
     if model_name == "FRCNN":
         return OptConfig("sgd", weight_decay=5e-4), 2e-3
     if model_name == "FCOS":

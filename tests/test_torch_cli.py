@@ -1,6 +1,8 @@
 """The port's CLI (`dgod_tpu_torch.cli`) against the JAX package's.
 
-- `vars(parser_args([]))` equals JAX's: the same flags and defaults;
+- `vars(parser_args([]))` equals JAX's: the same flags and defaults, but
+  for the port's own `--backbone` (DG Faster R-CNN on ViTDet-B,
+  tests/test_torch_vitdet.py);
 - `cli.main(argv, device="cpu")` end to end on PNGs and CSVs (arg parsing
   -> datasets -> loaders -> Trainer.fit -> checkpoint -> test sweep) for
   both families, reduced canvas and backbone depth: it returns `map_50`,
@@ -36,10 +38,15 @@ SMALL_FRCNN = FRCNNConfig(rpn_pre_nms_train=256, rpn_pre_nms_test=256,
 
 
 def test_flag_surface_matches_jax():
-    assert vars(cli.parser_args([])) == vars(jax_parser_args([]))
+    def port(argv):
+        got = vars(cli.parser_args(argv))
+        assert got.pop("backbone") == "resnet50_fpn"  # the port's own flag
+        return got
+
+    assert port([]) == vars(jax_parser_args([]))
     argv = ["--model", "FCOS", "--exp", "dg", "--reg_weights", "1", "2", "3",
             "4", "5", "--batch_size", "4", "--reference_quirks"]
-    assert vars(cli.parser_args(argv)) == vars(jax_parser_args(argv))
+    assert port(argv) == vars(jax_parser_args(argv))
 
 
 def write_domains(root, letters_splits, n=4, hw=(60, 120)):
