@@ -29,7 +29,11 @@ Phases, each of which fails the run (non-zero exit) on any fault:
    no further from float32 than the plain version computed in bf16, timed
    beside it and beside PyTorch's scaled_dot_product_attention with the
    bias materialised (`library_ms`, the yardstick; the port never calls
-   it);
+   it); K9, the optimizer's one-pass update, bit-identical to its plain
+   loop over three updates on ViTDet-B's and FCOS's leaves (Adam) and
+   FRCNN's (SGD), with mixed step counts, None, channels_last and
+   misaligned gradients and inactive leaves, timed on each mode-0 set
+   beside its bound, the plain loop and torch.optim.Adam(fused=True);
 4. train: the full-width DG Faster R-CNN (ResNet-50 (3,4,6,3), 608x1216,
    default FRCNNConfig, 3 domains, bf16, batch 8, random weights from a
    seed) runs two DG cycles of fused pairs (0,1), (0,2), (0,3), (0,4) under
@@ -130,7 +134,8 @@ MFU (`utils.flops.train_mfu`, against the H100 SXM's dense bf16 peak).
    cycles with every loss finite, 12 K7 launches in each half and 12 K8
    in each half that trains the backbone (all but mode 2's); then the eval
    step at batch 1 serves a CUDA graph's replay whose detections are the
-   eager call's, bit for bit.
+   eager call's, bit for bit. Every update of phases 4-7 and 14 goes
+   through K9 (no leaf through the plain loop).
 
 Output: one line per phase, then the card's name and power limit, then one
 JSON line {"kernels": [...]} (times, errors, bounds, and the launches of
@@ -1015,6 +1020,167 @@ def check_relpos_attention(dev, report):
                                                 errs["drel_w"]),
                                 bound_ms=bounds["K8"] * 1e3)
         del qkv, rel_h, rel_w, out, lse, g, q, k, v
+        torch.cuda.empty_cache()
+
+
+# K9's leaf sets: (name, backbone, model family)
+K9_SETS = (("ViTDet", "vitdet_b", "FRCNN"), ("FCOS", None, "FCOS"),
+           ("FRCNN", None, "FRCNN"))
+K9_MODES = (0, 2, 1)  # three updates: mixed step counts in the third
+
+
+def k9_model(dev, family: str, backbone):
+    from dgod_tpu_torch.models.dg_fcos import DGFCOSModel
+    from dgod_tpu_torch.models.dg_frcnn import DGFRCNNModel
+
+    kw = dict(num_classes=9, num_domains=3, canvas=CANVAS,
+              compute_dtype=torch.bfloat16, device=dev, seed=0)
+    if backbone:
+        kw["backbone"] = backbone
+    return (DGFCOSModel if family == "FCOS" else DGFRCNNModel)(**kw)
+
+
+def k9_grads(params, active, gen, update: int):
+    """Gradients of one update as the main paths hand them: every 11th
+    active leaf None, every other 4-D one channels_last, and in the third
+    update the rest views of one flat buffer at a 4-byte offset (the
+    data-parallel all-reduce's)."""
+    names = [n for n, a in active.items() if a]
+    dev = params[names[0]].device
+    flat = None
+    if update == 2:
+        total = sum(params[n].numel() for n in names)
+        flat = torch.randn(total + 1, generator=gen, device=dev) * 1e-3
+    grads, offset = {}, 1
+    for i, n in enumerate(names):
+        p = params[n]
+        if i % 11 == 0:
+            continue
+        if p.dim() == 4 and i % 2 == 0:
+            grads[n] = (torch.randn(p.shape, generator=gen, device=dev)
+                        * 1e-3).contiguous(memory_format=torch.channels_last)
+        elif flat is not None:
+            grads[n] = flat[offset:offset + p.numel()].view(p.shape)
+            offset += p.numel()
+        else:
+            grads[n] = torch.randn(p.shape, generator=gen, device=dev) * 1e-3
+    return grads
+
+
+def k9_state(params, config, gen):
+    """Optimizer state as deep in training: moments drawn at Adam's scales
+    and each leaf's step count drawn from 0-3,000."""
+    from dgod_tpu_torch.train.optim import init_opt_state
+
+    state = init_opt_state(params, config)
+    if config.kind == "sgd":
+        return state
+    dev = next(iter(params.values())).device
+    counts = torch.randint(0, 3001, (len(params),), generator=gen,
+                           device=dev).tolist()
+    for (n, p), c in zip(params.items(), counts):
+        state["mu"][n] = torch.randn(p.shape, generator=gen, device=dev) * 1e-4
+        state["nu"][n] = torch.rand(p.shape, generator=gen, device=dev) * 1e-8
+        state["count"][n] = c
+    return state
+
+
+def k9_copy(params, state):
+    return ({n: p.clone() for n, p in params.items()},
+            {k: dict(v) if k == "count" else
+             {n: t.clone() for n, t in v.items()} for k, v in state.items()})
+
+
+def check_multi_tensor_update(dev, report):
+    """K9 against its plain twin (train/optim.py::update_plain) on the real
+    leaf sets of ViTDet-B and FCOS (Adam) and FRCNN (SGD): three updates
+    through the masks of modes 0, 2 and 1 from a state deep in training
+    (`k9_state`), with None, channels_last and misaligned gradients
+    (`k9_grads`); every parameter, moment and count bit-identical. Then
+    the mode-0 update of each set timed: K9, the plain loop on the device
+    (queued) and as issued, torch.optim.Adam(fused=True) (the library's
+    yardstick; the port never calls it), K9's bound (28 bytes an element
+    for Adam, 12 for SGD). The ViTDet set's numbers are K9's report."""
+    from dgod_tpu_torch.ops import cuda_optim
+    from dgod_tpu_torch.train import optim
+    from dgod_tpu_torch.train import steps as S
+    from dgod_tpu_torch.utils.timing import device_time_ms, host_ms
+
+    for name, backbone, family in K9_SETS:
+        model = k9_model(dev, family, backbone)
+        config, lr = S.make_optimizer(
+            family, model.detector.backbone if backbone else None)
+        labels = model.param_group_labels()
+        params = {n: p.detach() for n, p in model.named_parameters()}
+        gen = torch.Generator(device=dev).manual_seed(9)
+        state = k9_state(params, config, gen)
+        plain_params, plain_state = k9_copy(params, state)
+        before = cuda_optim.launches
+        shapes = set()
+        # FCOS's updates in launches of 7 leaves: the split over launches
+        _, capacity = cuda_optim._kernel()
+        cuda_optim._lib["capacity"] = 7 if name == "FCOS" else capacity
+        for update, mode in enumerate(K9_MODES):
+            active = S.build_active_mask(labels, mode)
+            grads = k9_grads(params, active, gen, update)
+            leaves = optim.active_leaves(params, grads, state, active, config)
+            shapes |= {(g is None, None if g is None else g.is_contiguous(),
+                        None if g is None else g.data_ptr() % 16)
+                       for _, g, *_ in leaves}
+            cuda_optim.multi_tensor_update(leaves, lr, config)
+            optim.update_plain(optim.active_leaves(
+                plain_params, grads, plain_state, active, config), lr, config)
+        cuda_optim._lib["capacity"] = capacity
+        launched = cuda_optim.launches - before
+        torch.cuda.synchronize()
+        for n in params:
+            same = torch.equal(params[n], plain_params[n])
+            if config.kind != "sgd":
+                same = (same and torch.equal(state["mu"][n],
+                                             plain_state["mu"][n])
+                        and torch.equal(state["nu"][n], plain_state["nu"][n])
+                        and state["count"][n] == plain_state["count"][n])
+            if not same:
+                fail(f"K9 {name}: {n} differs from the plain loop's")
+        mode0 = optim.active_leaves(params, k9_grads(
+            params, S.build_active_mask(labels, 0), gen, 0), state,
+            S.build_active_mask(labels, 0), config)
+        elements = sum(leaf.p.numel() for leaf in mode0)
+        per = 12 if config.kind == "sgd" else 28
+        bound = elements * per / HBM_BYTES_PER_S * 1e3
+        ms = device_time_ms(lambda: cuda_optim.multi_tensor_update(
+            mode0, lr, config), dev, iters=20)
+        k9_host = host_ms(lambda: cuda_optim.multi_tensor_update(
+            mode0, lr, config), dev)[1]
+        plain_ms = device_time_ms(lambda: optim.update_plain(
+            mode0, lr, config), dev, iters=1, warmup=1)
+        plain_host = host_ms(lambda: optim.update_plain(mode0, lr, config),
+                             dev)[1]
+        lib_ms = None
+        if config.kind != "sgd":
+            lib = [leaf.p.clone() for leaf in mode0]
+            for t, leaf in zip(lib, mode0):
+                t.grad = (torch.zeros_like(t) if leaf.g is None else
+                          leaf.g.clone(memory_format=torch.contiguous_format))
+            adam = torch.optim.Adam(lib, lr=lr, betas=(config.b1, config.b2),
+                                    eps=config.eps,
+                                    weight_decay=config.weight_decay,
+                                    fused=True)
+            lib_ms = device_time_ms(adam.step, dev, iters=20)
+            del adam, lib
+        print(f"K9 {name} ({config.kind}): 3 updates bit-identical to the "
+              f"plain loop over {len(params)} leaves, "
+              f"{launched} launches, gradients "
+              f"(None, contiguous, address % 16) {sorted(shapes, key=str)}; "
+              f"mode 0: {len(mode0)} leaves, {elements} elements, "
+              f"{ms:.4f} ms (as issued {k9_host:.3f}), bound {bound:.4f} "
+              f"({100 * bound / ms:.1f}%); plain {plain_ms:.3f} ms on the "
+              f"device, {plain_host:.3f} as issued; torch.optim.Adam fused "
+              f"{'-' if lib_ms is None else f'{lib_ms:.4f}'} ms")
+        if name == "ViTDet":
+            report["K9"] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                                max_abs_err=0.0, bound_ms=bound)
+        del model, params, state, plain_params, plain_state, mode0
         torch.cuda.empty_cache()
 
 
@@ -2712,6 +2878,7 @@ def main() -> int:
     check_nms_topk(dev, report)
     check_proposals(dev, report)
     check_relpos_attention(dev, report)
+    check_multi_tensor_update(dev, report)
     for family in ("FRCNN", "FCOS"):
         check_small_model_card_vs_cpu(dev, family)
 
@@ -2719,7 +2886,11 @@ def main() -> int:
     # launches; 8. the CLI of each family; 9. the torchvision warm start
     # of each; 10. each family learns. Phases 8-10 check their own
     # launches and print them on lines of their own
+    from dgod_tpu_torch.ops import cuda_optim
+    from dgod_tpu_torch.train import optim
+
     counts = dict.fromkeys(("K1", "K2", "K3", "K4", "K5", "K6"), 0)
+    k9_before = (cuda_optim.launches, optim.plain_leaves)
     for family in ("FRCNN", "FCOS"):
         for kid, n in run_main_path(dev, family).items():
             counts[kid] += n
@@ -2727,6 +2898,10 @@ def main() -> int:
         if n <= 0:
             fail(f"{kid} was not launched on the main paths")
     counts.update(run_vitdet_phase(dev))
+    counts["K9"] = cuda_optim.launches - k9_before[0]
+    if optim.plain_leaves != k9_before[1] or counts["K9"] <= 0:
+        fail(f"the main paths' updates took the plain loop "
+             f"({optim.plain_leaves - k9_before[1]} leaves)")
     print(f"main paths' launches (the kernels line): {counts}")
     with tempfile.TemporaryDirectory() as root:
         t = time.perf_counter()
@@ -2782,17 +2957,23 @@ def main() -> int:
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": None,
         })
-    # K7, K8 at the global shape (B=8, N=2,888), bound by the tensor cores
-    for kid, name in (("K7", "relpos_attention_fwd"),
-                      ("K8", "relpos_attention_bwd")):
+    # K7, K8 at the global shape (B=8, N=2,888), bound by the tensor cores;
+    # K9 on ViTDet's mode-0 leaves, bound by its bytes
+    for kid, name, source, by in (
+            ("K7", "relpos_attention_fwd", "relpos_attention.cu",
+             "tensor cores"),
+            ("K8", "relpos_attention_bwd", "relpos_attention.cu",
+             "tensor cores"),
+            ("K9", "multi_tensor_update", "multi_tensor_update.cu",
+             "bytes")):
         r = report[kid]
         kernels.append({
             "name": name, "route": "cuda",
-            "source": "dgod_tpu_torch/csrc/relpos_attention.cu",
+            "source": f"dgod_tpu_torch/csrc/{source}",
             "replaces": None, "launches": counts[kid],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": "tensor cores", "library_ms": r["library_ms"],
+            "bound_by": by, "library_ms": r["library_ms"],
         })
     print(smi)
     print(json.dumps({"kernels": kernels}))

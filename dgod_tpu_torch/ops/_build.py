@@ -26,7 +26,7 @@ PKG = Path(__file__).resolve().parents[1]
 CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "_build"
 SOURCES = ("roi_align", "iou_match", "fcos_match", "nms_topk", "proposals",
-           "relpos_attention")
+           "relpos_attention", "multi_tensor_update")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
