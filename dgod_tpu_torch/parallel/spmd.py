@@ -1,13 +1,14 @@
-"""Data-parallel train steps with one fused gradient all-reduce per step
-half (port of dgod_tpu/parallel/spmd.py).
+"""Data parallelism of the train steps: one fused gradient all-reduce per
+step half, and the draws and counts of a global batch (port of
+dgod_tpu/parallel/spmd.py).
 
 Every rank holds the full replicated parameters and optimizer state (or,
 with a model axis > 1, its slices of the split layers) and runs the port's
-own step half (`train/steps.py::_half`) on its row block of the batch.
-Between the backward and the update, `reduce_active_grads` packs the
-mode's active gradients and the loss scalars into ONE contiguous float32
-buffer and makes ONE all-reduce of it over the data group, so every rank
-applies the identical update.
+own steps (`train/steps.py`, built with `mesh=`) on its row block of the
+batch. Between the backward and the update, `reduce_active_grads` packs
+the mode's active gradients and the loss scalars into ONE contiguous
+float32 buffer and makes ONE all-reduce of it over the data group, so
+every rank applies the identical update.
 
 Two semantics, as the JAX package has them:
 
@@ -26,14 +27,11 @@ Two semantics, as the JAX package has them:
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence
+from typing import Dict, Optional
 
 import torch
 import torch.distributed as dist
 
-from ..train.optim import OptConfig
-from ..train.steps import _half, build_active_mask, pair_metrics
-from ..utils.logging import span
 from .mesh import Mesh
 
 
@@ -78,85 +76,47 @@ def reduce_active_grads(grads: Dict[str, Optional[torch.Tensor]],
     return out, red
 
 
-def _reducer(active, mesh: Mesh, average: bool):
-    def reduce(grads, metrics, params):
+def mode_reducer(mesh: Mesh, mode: int, active: Dict[str, bool],
+                 like: Dict[str, torch.Tensor]):
+    """-> reduce(grads, metrics) -> (grads, metrics): one mode's fused
+    all-reduce over the data group, a sum for mode 0 under a model axis
+    > 1 (its losses are sums over the global batch there) and a mean
+    otherwise. `train/steps.py` runs it between a half's backward and its
+    update."""
+    average = not (_global_batch(mesh) and mode == 0)
+
+    def reduce(grads, metrics):
         return reduce_active_grads(grads, active, metrics, mesh.data_group,
-                                   like=params, average=average)
+                                   like=like, average=average)
 
     return reduce
 
 
-def _sum_over_data(mesh: Mesh):
-    """A count of this rank's rows -> the count over the data group."""
-    def batch_sum(t: torch.Tensor) -> torch.Tensor:
+def batch_sum(mesh: Optional[Mesh]):
+    """Under a model axis > 1, the function that turns a count of this
+    rank's rows into the count over the data group (`model.pair_targets`'
+    `batch_sum`); else None: each rank's losses are its own rows'."""
+    if not _global_batch(mesh):
+        return None
+
+    def total(t: torch.Tensor) -> torch.Tensor:
         if dist.is_initialized():
             dist.all_reduce(t, group=mesh.data_group)
         return t
 
-    return batch_sum
+    return total
 
 
-def _global_batch(mesh: Mesh) -> bool:
-    return mesh.model > 1
+def _global_batch(mesh: Optional[Mesh]) -> bool:
+    return mesh is not None and mesh.model > 1
 
 
-def make_spmd_train_step(model, mode: int, reg_weights: Sequence[float],
-                         opt_config: OptConfig, base_lr: float, mesh: Mesh):
-    """-> step(opt_state, batch, draws, lr_scale=1.0) -> (opt_state,
-    metrics) on this rank's rows, metrics reduced over the data group."""
-    active = build_active_mask(model.param_group_labels(), mode)
-    reg_weights = tuple(float(w) for w in reg_weights)
-    glob = _global_batch(mesh)
-    reduce = _reducer(active, mesh, average=not (glob and mode == 0))
-
-    def step(opt_state, batch, draws, lr_scale=1.0):
-        targets = model.pair_targets(batch, _sum_over_data(mesh)) \
-            if glob else None
-        return _half(model, opt_state, batch, draws, base_lr * lr_scale,
-                     mode, active, reg_weights, opt_config, targets, reduce)
-
-    return step
-
-
-def make_spmd_pair_step(model, mode_k: int, reg_weights: Sequence[float],
-                        opt_config: OptConfig, base_lr: float, mesh: Mesh):
-    """The fused DG pair (mode 0, then mode k on the same batch; the
-    single-device one is train/steps.py::make_pair_step) with one fused
-    all-reduce per half.
-
-    -> step(opt_state, batch, draws0, draws1, lr_scale=1.0) -> (opt_state,
-    metrics)."""
-    labels = model.param_group_labels()
-    active_by_mode = {m: build_active_mask(labels, m) for m in (0, mode_k)}
-    reg_weights = tuple(float(w) for w in reg_weights)
-    glob = _global_batch(mesh)
-    reduce = {m: _reducer(active_by_mode[m], mesh,
-                          average=not (glob and m == 0))
-              for m in (0, mode_k)}
-
-    def step(opt_state, batch, draws0, draws1, lr_scale=1.0):
-        lr = base_lr * lr_scale
-        with span("dgod.pair"):
-            with span("dgod.targets"):
-                targets = model.pair_targets(
-                    batch, _sum_over_data(mesh) if glob else None)
-            opt_state, m0 = _half(model, opt_state, batch, draws0, lr, 0,
-                                  active_by_mode[0], reg_weights, opt_config,
-                                  targets, reduce[0])
-            opt_state, mk = _half(model, opt_state, batch, draws1, lr,
-                                  mode_k, active_by_mode[mode_k], reg_weights,
-                                  opt_config, targets, reduce[mode_k])
-        return opt_state, pair_metrics(m0, mk, mode_k)
-
-    return step
-
-
-def make_draws(model, mesh: Mesh, rows: int, num_gt: int,
+def make_draws(model, mesh: Optional[Mesh], rows: int, num_gt: int,
                generator: torch.Generator, with_rpn: bool = True):
     """The sampling priorities of this rank's `rows` rows (None for FCOS,
-    which draws nothing). Model axis 1: drawn for the local rows, the same
-    on every rank. Model axis > 1: drawn for all `rows * data` rows of the
-    global batch, and this rank's block kept."""
+    which draws nothing). No mesh or model axis 1: drawn for the local
+    rows, the same on every rank. Model axis > 1: drawn for all
+    `rows * data` rows of the global batch, and this rank's block kept."""
     if not _global_batch(mesh):
         return model.make_draws(rows, num_gt, generator, with_rpn=with_rpn)
     draws = model.make_draws(rows * mesh.data, num_gt, generator,

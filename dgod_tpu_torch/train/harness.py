@@ -30,9 +30,9 @@ drives a data x model mesh of ranks:
   after init (and after a warm start), then, with a model axis > 1, the
   head layers are split over it (parallel/tensor_parallel.py);
 - each rank's loaders yield its row block of every host batch
-  (`Mesh.row_block`), and the steps are parallel/spmd.py's: one fused
-  all-reduce of the active gradients and the loss scalars per step half,
-  so the logged losses are the reduced ones;
+  (`Mesh.row_block`), and the steps, built with the mesh, make one fused
+  all-reduce of the active gradients and the loss scalars per step half
+  (parallel/spmd.py), so the logged losses are the reduced ones;
 - `validate()` harvests this rank's images, then gathers the per-image
   arrays of all ranks once, so every rank computes the same mAP (and
   takes the same plateau, early-stopping and checkpoint decisions);
@@ -42,7 +42,6 @@ drives a data x model mesh of ranks:
 
 from __future__ import annotations
 
-import functools
 import time
 from typing import Any, Dict
 
@@ -127,27 +126,14 @@ class Trainer:
         # two sequential optimizer updates — the reference's replayed-batch
         # schedule, minus one host decode and copy per pair
         self.fused_pairs = bool(fused_pairs) and dg
-        hyper = (self.reg_weights, self.opt_config, self.base_lr)
-        if mesh is None:
-            make_pair, make_step = (step_lib.make_pair_step,
-                                    step_lib.make_train_step)
-        else:
-            make_pair = functools.partial(spmd.make_spmd_pair_step, mesh=mesh)
-            make_step = functools.partial(spmd.make_spmd_train_step,
-                                          mesh=mesh)
+        if mesh is not None:
             # each rank loads its row block of every host batch
             train_loader.rows = mesh.row_block(train_loader.batch_size)
         if self.fused_pairs:
-            self.pair_steps = {k: make_pair(model, k, *hyper)
-                               for k in (1, 2, 3, 4)}
             self._pair_i = 0
             # the fused step consumes each batch once
             if getattr(train_loader, "dg", False):
                 train_loader.dg = False
-        else:
-            modes = (0, 1, 2, 3, 4) if dg else (0,)
-            self.steps = {m: make_step(model, m, *hyper) for m in modes}
-        self.eval_step = step_lib.make_eval_step(model)
         self.scheduler = step_lib.ModeScheduler(dg)
         self.plateau = ReduceLROnPlateau()
         self.early_stop = EarlyStopping()
@@ -166,6 +152,17 @@ class Trainer:
             multihost.broadcast_module(self.model)
             self.sharding = shard_model(self.model, mesh)
             self.opt_state = shard_state(self.opt_state, self.sharding, mesh)
+
+        # the steps hold the parameters: built after sharding rebinds some
+        hyper = (self.reg_weights, self.opt_config, self.base_lr, mesh)
+        if self.fused_pairs:
+            self.pair_steps = {k: step_lib.make_pair_step(model, k, *hyper)
+                               for k in (1, 2, 3, 4)}
+        else:
+            modes = (0, 1, 2, 3, 4) if dg else (0,)
+            self.steps = {m: step_lib.make_train_step(model, m, *hyper)
+                          for m in modes}
+        self.eval_step = step_lib.make_eval_step(model)
 
     def _print(self, msg: str) -> None:
         if self.is_main:
@@ -193,9 +190,6 @@ class Trainer:
         return meta
 
     def _draws(self, rows: int, num_gt: int, with_rpn: bool):
-        if self.mesh is None:
-            return self.model.make_draws(rows, num_gt, self.gen,
-                                         with_rpn=with_rpn)
         return spmd.make_draws(self.model, self.mesh, rows, num_gt, self.gen,
                                with_rpn=with_rpn)
 

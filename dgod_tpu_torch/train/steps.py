@@ -16,10 +16,11 @@ alone (`model.pair_targets`: FCOS's matcher codes, one K4 launch per pair).
 
 from __future__ import annotations
 
-from typing import Dict, Sequence
+from typing import Callable, Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
+from ..parallel import spmd
 from ..utils.logging import span
 from .eval_graphs import EvalGraphs
 from .optim import OptConfig, apply_updates
@@ -59,38 +60,64 @@ def build_active_mask(labels: Dict[str, str], mode: int) -> Dict[str, bool]:
     return {n: lbl in active_groups for n, lbl in labels.items()}
 
 
-def stop_inactive_grads(model: torch.nn.Module, active: Dict[str, bool]):
+class ModeSet(NamedTuple):
+    """One mode's participation, decided when its step is built: the mask
+    that `apply_updates` and the reducer take, the active names and
+    parameters in `named_parameters` order, every parameter by name, each
+    parameter's `requires_grad` under the mode, and the data group's
+    reduction (None on one card). Built after the model's parameters are
+    final: `shard_model` rebinds the split ones."""
+    mode: int
+    active: Dict[str, bool]
+    names: Tuple[str, ...]
+    leaves: Tuple[torch.nn.Parameter, ...]
+    params: Dict[str, torch.nn.Parameter]
+    requires: Tuple[Tuple[torch.nn.Parameter, bool], ...]
+    reduce: Optional[Callable]
+
+
+def mode_set(model, mode: int, mesh=None) -> ModeSet:
+    """`mode`'s ModeSet of `model`; with `mesh`, its reduction over the
+    data group (parallel/spmd.py::mode_reducer)."""
+    active = build_active_mask(model.param_group_labels(), mode)
+    params = dict(model.named_parameters())
+    names = tuple(n for n, a in active.items() if a)
+    reduce = (None if mesh is None
+              else spmd.mode_reducer(mesh, mode, active, params))
+    return ModeSet(mode, active, names, tuple(params[n] for n in names),
+                   params, tuple((p, active[n]) for n, p in params.items()),
+                   reduce)
+
+
+def stop_inactive_grads(mset: ModeSet):
     """requires_grad only on the mode's active parameters (the port of
     `stop_gradient` on the inactive leaves). Gradients still flow through
     frozen layers' activations where an active parameter lies below them;
     nothing active lies below layer2, so that backward is never built."""
-    for name, p in model.named_parameters():
-        p.requires_grad_(active[name])
+    for p, on in mset.requires:
+        p.requires_grad_(on)
 
 
-def _half(model, opt_state, batch, draws, lr, mode, active, reg_weights,
-          opt_config, targets=None, reduce=None):
-    """One step half: the mode's loss, its gradients, the update.
-    `reduce(grads, metrics, params) -> (grads, metrics)`, where given, runs
-    between the backward and the update (the data-parallel all-reduce,
-    parallel/spmd.py)."""
-    with span(HALF_SPANS[mode]):
-        stop_inactive_grads(model, active)
+def _half(model, opt_state, batch, draws, lr, mset: ModeSet, reg_weights,
+          opt_config, targets=None):
+    """One step half: the mode's loss, its gradients, the update; on a
+    mesh the data group's all-reduce runs between the backward and the
+    update."""
+    with span(HALF_SPANS[mset.mode]):
+        stop_inactive_grads(mset)
         with span("dgod.forward"):
-            total, metrics = model.loss_for_mode(batch, draws, mode,
+            total, metrics = model.loss_for_mode(batch, draws, mset.mode,
                                                  reg_weights,
                                                  **(targets or {}))
-        params = dict(model.named_parameters())
-        names = [n for n, a in active.items() if a]
         with span("dgod.backward"):
-            grads = dict(zip(names, torch.autograd.grad(
-                total, [params[n] for n in names], allow_unused=True)))
+            grads = dict(zip(mset.names, torch.autograd.grad(
+                total, mset.leaves, allow_unused=True)))
         metrics = dict(metrics)
         metrics["loss"] = total.detach()
-        if reduce is not None:
-            grads, metrics = reduce(grads, metrics, params)
-        opt_state = apply_updates(params, grads, opt_state, active, lr,
-                                  opt_config)
+        if mset.reduce is not None:
+            grads, metrics = mset.reduce(grads, metrics)
+        opt_state = apply_updates(mset.params, grads, opt_state,
+                                  mset.active, lr, opt_config)
     return opt_state, metrics
 
 
@@ -105,45 +132,49 @@ def pair_metrics(m0, mk, mode_k: int):
 
 
 def make_train_step(model, mode: int, reg_weights: Sequence[float],
-                    opt_config: OptConfig, base_lr: float):
+                    opt_config: OptConfig, base_lr: float, mesh=None):
     """-> step(opt_state, batch, draws, lr_scale=1.0) -> (opt_state,
-    metrics); updates the model's parameters in place."""
-    active = build_active_mask(model.param_group_labels(), mode)
+    metrics); updates the model's parameters in place. With `mesh`
+    (parallel/mesh.py) the step runs on this rank's rows and its gradients
+    and metrics are reduced over the data group."""
+    mset = mode_set(model, mode, mesh)
+    batch_sum = spmd.batch_sum(mesh)
     reg_weights = tuple(float(w) for w in reg_weights)
 
     def step(opt_state, batch, draws, lr_scale=1.0):
+        targets = (None if batch_sum is None
+                   else model.pair_targets(batch, batch_sum))
         return _half(model, opt_state, batch, draws, base_lr * lr_scale,
-                     mode, active, reg_weights, opt_config)
+                     mset, reg_weights, opt_config, targets)
 
     return step
 
 
 def make_pair_step(model, mode_k: int, reg_weights: Sequence[float],
-                   opt_config: OptConfig, base_lr: float):
+                   opt_config: OptConfig, base_lr: float, mesh=None):
     """Fused DG pair: the mode-0 update, then the mode-k update on the same
     batch (the mode-k pass sees the mode-0-updated parameters). What both
     halves take from the batch alone is computed once, before them
     (`model.pair_targets`); it reads no parameter, so either half gets what
-    it would compute itself.
+    it would compute itself. `mesh` as in `make_train_step`: one fused
+    all-reduce per half.
 
     -> step(opt_state, batch, draws0, draws1, lr_scale=1.0) -> (opt_state,
     metrics) with the metrics of both halves."""
-    labels = model.param_group_labels()
-    active_by_mode = {m: build_active_mask(labels, m) for m in (0, mode_k)}
+    m0, mk = (mode_set(model, m, mesh) for m in (0, mode_k))
+    batch_sum = spmd.batch_sum(mesh)
     reg_weights = tuple(float(w) for w in reg_weights)
 
     def step(opt_state, batch, draws0, draws1, lr_scale=1.0):
         lr = base_lr * lr_scale
         with span("dgod.pair"):
             with span("dgod.targets"):
-                targets = model.pair_targets(batch)
-            opt_state, m0 = _half(model, opt_state, batch, draws0, lr, 0,
-                                  active_by_mode[0], reg_weights, opt_config,
-                                  targets)
-            opt_state, mk = _half(model, opt_state, batch, draws1, lr,
-                                  mode_k, active_by_mode[mode_k], reg_weights,
-                                  opt_config, targets)
-        return opt_state, pair_metrics(m0, mk, mode_k)
+                targets = model.pair_targets(batch, batch_sum)
+            opt_state, metrics0 = _half(model, opt_state, batch, draws0, lr,
+                                        m0, reg_weights, opt_config, targets)
+            opt_state, metrics_k = _half(model, opt_state, batch, draws1, lr,
+                                         mk, reg_weights, opt_config, targets)
+        return opt_state, pair_metrics(metrics0, metrics_k, mode_k)
 
     return step
 

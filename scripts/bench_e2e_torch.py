@@ -7,8 +7,8 @@ one card (the port of scripts/bench_e2e.py).
         [--decode_cache_gb G] [--process_loader]
     python3 scripts/bench_e2e_torch.py --device cpu      # a smoke run
 
-`bench_torch.py` times the DG cycle on batches already on the card; this
-times the loop the CLI runs:
+The benchmark's train cells (`perfbench/run.py`) time the DG cycle on
+batches already on the card; this times the loop the CLI runs:
 
     PNG files on disk -> DrivingDataset (the port's C++ PNG decode, the
       reference CSV) -> TrainLoader (threads) or, with --process_loader,

@@ -231,7 +231,6 @@ def blocked_cycle(family, dev, small, blocks: int, glob: bool,
     opt_config, lr = S.make_optimizer(family)
     params = dict(model.named_parameters())
     opt_state = init_opt_state(params, opt_config)
-    labels = model.param_group_labels()
     gen = torch.Generator(device=dev).manual_seed(0)
     rows = GLOBAL_BATCH // blocks
     cut = [slice(i * rows, (i + 1) * rows) for i in range(blocks)]
@@ -257,9 +256,9 @@ def blocked_cycle(family, dev, small, blocks: int, glob: bool,
                 t["fg_count"] = count
         pair = []
         for mode, ds in ((0, d0), (mode_k, dk)):
-            active = S.build_active_mask(labels, mode)
-            S.stop_inactive_grads(model, active)
-            names = [n for n, a in active.items() if a]
+            mset = S.mode_set(model, mode)
+            S.stop_inactive_grads(mset)
+            names = mset.names
             acc = {n: torch.zeros_like(params[n]) for n in names}
             total = torch.zeros((), device=dev)
             for p, d, tg in zip(parts, ds, targets):
@@ -274,8 +273,8 @@ def blocked_cycle(family, dev, small, blocks: int, glob: bool,
                 div = torch.full((), float(blocks), device=dev)
                 acc = {n: v / div for n, v in acc.items()}
                 total = total / div
-            opt_state = apply_updates(params, acc, opt_state, active, lr,
-                                      opt_config)
+            opt_state = apply_updates(params, acc, opt_state, mset.active,
+                                      lr, opt_config)
             pair.append(float(total))
         out.append(pair)
     return out, state_of(model)
@@ -350,9 +349,9 @@ def rank_main(spec, batch, small, timed, root, device, plant=False):
     else:
         deterministic(dev)
     if plant:
-        reducer = spmd._reducer
-        spmd._reducer = lambda active, mesh, average: reducer(active, mesh,
-                                                              False)
+        reduce = spmd.reduce_active_grads
+        spmd.reduce_active_grads = lambda *a, **k: reduce(
+            *a, **{**k, "average": False})
     out = {}
     for family in FAMILIES:
         c0 = counts()

@@ -218,7 +218,7 @@ def jax_parity_pair(inputs_path):
     mesh = mesh_lib.make_mesh()
     opt_config, lr = step_lib.make_optimizer("FCOS")
     opt_state = init_opt_state(dict(model.named_parameters()), opt_config)
-    step = spmd.make_spmd_pair_step(model, 1, REG, opt_config, lr, mesh)
+    step = step_lib.make_pair_step(model, 1, REG, opt_config, lr, mesh=mesh)
     batch = batch_to_torch(mesh_lib.batch_rows(inp["batch"], mesh), "cpu")
     _, metrics = step(opt_state, batch, None, None, 1.0)
     return {"loss": float(metrics["loss"]), "loss0": float(metrics["loss0"]),

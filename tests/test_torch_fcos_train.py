@@ -101,21 +101,19 @@ def test_fcos_gradients_match_jax(pair, batch, jax_grad, mode):
     _, jp, tm0 = pair
     ref = _port_names(jax_grad(mode)(jp, RNG0)[1])
     tm = copy.deepcopy(tm0)
-    labels = tm.param_group_labels()
-    active = t_steps.build_active_mask(labels, mode)
-    t_steps.stop_inactive_grads(tm, active)
+    mset = t_steps.mode_set(tm, mode)
+    t_steps.stop_inactive_grads(mset)
     total, _ = tm.loss_for_mode(to_torch(batch), None, mode, REG_WEIGHTS)
-    named = [(n, p) for n, p in tm.named_parameters() if active[n]]
-    grads = torch.autograd.grad(total, [p for _, p in named],
-                                allow_unused=True)
-    for (n, _), g in zip(named, grads):
+    grads = torch.autograd.grad(total, mset.leaves, allow_unused=True)
+    for n, g in zip(mset.names, grads):
         a = ref[n].numpy().astype(np.float64)
         b = np.zeros_like(a) if g is None else g.numpy()
         assert np.isfinite(b).all(), n
         assert np.linalg.norm(b - a) <= 1e-2 * np.linalg.norm(a) + 1e-12, n
-    # every inactive leaf takes no gradient on either side
+    # every inactive leaf takes no gradient on either side (FrozenBatchNorm's
+    # tensors, absent from the mask, are buffers in the port)
     for n, g in ref.items():
-        if not active.get(n, False):  # FrozenBatchNorm: buffers in the port
+        if not mset.active.get(n, False):
             assert not g.numpy().any(), n
 
 

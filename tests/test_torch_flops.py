@@ -1,5 +1,5 @@
-"""The port's FLOP count, MFU, timing and bench (`dgod_tpu_torch.utils.
-flops`, `utils.timing`, `bench_torch.py`).
+"""The port's FLOP count, MFU and timing (`dgod_tpu_torch.utils.flops`,
+`utils.timing`).
 
 - the port's `cycle_flops` equals the JAX package's in every component
   but the stem, and the stem differs by exactly the 7x7x3 conv the port
@@ -12,18 +12,14 @@ flops`, `utils.timing`, `bench_torch.py`).
   discard it, which JAX's dead-code elimination removed;
 - `train_mfu` lies in its band, on the H100's peak or a given one;
 - the timing helpers time the CPU on the host clock and refuse a CUDA
-  device that is not there;
-- `bench_torch.py --device cpu` prints one JSON line with both families.
+  device that is not there.
 """
-
-import json
 
 import numpy as np
 import pytest
 import torch
 from torch.utils.flop_counter import FlopCounterMode
 
-import bench_torch
 from dgod_tpu.utils import flops as JF
 from dgod_tpu_torch.utils import flops as F
 from dgod_tpu_torch.utils import timing
@@ -168,27 +164,3 @@ def test_timing_never_falls_back_from_cuda(monkeypatch):
             fn()
     with pytest.raises(ValueError):
         timing.synchronize("meta")
-
-
-def test_bench_refuses_to_run_without_a_card(monkeypatch, capsys):
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    assert bench_torch.main([]) == 1
-    assert capsys.readouterr().out == ""
-
-
-def test_bench_cpu_smoke_prints_one_json_line(one_thread, capsys):
-    assert bench_torch.main(["--device", "cpu"]) == 0
-    lines = capsys.readouterr().out.strip().splitlines()
-    assert len(lines) == 1
-    out = json.loads(lines[0])
-    assert out["device"] == "cpu" and out["card"] == "cpu"
-    assert out["canvas"] == [64, 128] and out["timed_cycles"] == 1
-    assert set(out["families"]) == {"FRCNN", "FCOS"}
-    for fam in out["families"].values():
-        assert fam["images_per_sec"] > 0
-        assert fam["images_per_cycle"] == 16
-        assert len(fam["cycle_ms"]) == 1
-        assert fam["mfu"] is None  # a CPU run reports no device metric
-    assert out["value"] == min(f["images_per_sec"]
-                               for f in out["families"].values())
-    assert set(out["tf32"]) == {"cudnn.allow_tf32", "cuda.matmul.allow_tf32"}

@@ -7,7 +7,7 @@
   pandas, cv2, jax, flax and msgpack absent, as on the machine with the
   card (a subprocess that blocks them);
 - no file of the port, chip_smoke.py, train_driving_dg_torch.py,
-  bench_torch.py, scripts/check_convergence_torch.py,
+  scripts/check_convergence_torch.py,
   scripts/compare_card_cpu_training.py, scripts/check_multigpu_torch.py,
   scripts/rank_launch.py or tests/_torch_ranks.py (what the gloo ranks of
   the multi-GPU tests run) imports jax, flax, msgpack, pandas or dgod_tpu
@@ -109,7 +109,7 @@ def _imported_roots(path: Path):
 @pytest.mark.parametrize("path", sorted(
     str(p.relative_to(REPO)) for p in [
         *PKG.rglob("*.py"), REPO / "chip_smoke.py",
-        REPO / "train_driving_dg_torch.py", REPO / "bench_torch.py",
+        REPO / "train_driving_dg_torch.py",
         REPO / "scripts" / "check_convergence_torch.py",
         REPO / "scripts" / "compare_card_cpu_training.py",
         REPO / "scripts" / "check_multigpu_torch.py",

@@ -132,8 +132,7 @@ def test_roi_align_input_carries_grad_except_in_mode_2(pair, batch, mode,
                                                        monkeypatch):
     _, _, tm0 = pair
     tm = copy.deepcopy(tm0)
-    active = t_steps.build_active_mask(tm.param_group_labels(), mode)
-    t_steps.stop_inactive_grads(tm, active)
+    t_steps.stop_inactive_grads(t_steps.mode_set(tm, mode))
     seen = []
     det = tm.detector
     inner = det.roi_align
