@@ -24,12 +24,16 @@ Phases, each of which fails the run (non-zero exit) on any fault:
    run a small float32 model of each family on the card and
    on the CPU with the same weights, batch and random draws and require
    the same losses; K7 and K8, ViTDet's fused attention with decomposed
-   relative positions (CUDA C++), forward and backward against the plain
-   version at the ViTDet-B cell's window and global shapes in bf16, each
-   no further from float32 than the plain version computed in bf16, timed
-   beside it and beside PyTorch's scaled_dot_product_attention with the
-   bias materialised (`library_ms`, the yardstick; the port never calls
-   it); K9, the optimizer's one-pass update, bit-identical to its plain
+   relative positions (CUDA C++ on wgmma), forward and backward against
+   the plain version at the ViTDet-B cell's window and global shapes and
+   at two grids whose edges its 64-row tiles meet (5 x 19; 38 x 76 at
+   batch 1) in bf16, each no further from float32 than the plain version
+   computed in bf16 and through autograd the direct calls' bit for bit,
+   timed (K8's delta, dK/dV and dQ kernels apart, from torch.profiler)
+   beside its bound and at the cell's shapes beside the plain version and
+   PyTorch's scaled_dot_product_attention with the bias materialised
+   (`library_ms`, the yardstick; the port never calls it); K9, the
+   optimizer's one-pass update, bit-identical to its plain
    loop over three updates on ViTDet-B's and FCOS's leaves (Adam) and
    FRCNN's (SGD), with mixed step counts, None, channels_last and
    misaligned gradients and inactive leaves, timed on each mode-0 set
@@ -894,9 +898,23 @@ def check_proposals(dev, report):
     report["K5"]["max_abs_err"] = max_err
 
 
-# ViTDet-B's attentions at the cell's shapes: (batch of attentions, grid)
-ATTENTIONS = {"window": (B * 18, (14, 14)), "global": (B, (38, 76))}
+# ViTDet-B's attentions at the cell's shapes, then two grids whose edges the
+# kernels' 64-row tiles meet: 5 x 19 (rows padded to 32, 95 tokens, not a
+# multiple of 64) and the global grid at batch 1 (fewer blocks than SMs):
+# (batch of attentions, grid)
+ATTENTIONS = {"window": (B * 18, (14, 14)), "global": (B, (38, 76)),
+              "ragged 5x19": (3, (5, 19)), "global b1": (1, (38, 76))}
+TIMED = ("window", "global")  # the shapes timed beside plain and SDPA
 HEADS, HEAD_DIM = 12, 64
+# K8's three kernels, as the profiler names them
+K8_KERNELS = ("relpos_attn_bwd_delta", "relpos_attn_bwd_dkdv",
+              "relpos_attn_bwd_dq")
+# K7 and K8 on mma.sync fed by ldmatrix, the first design, at the timed
+# shapes (this script, NVIDIA H100 80GB HBM3, 700 W)
+PREVIOUS_ATTENTION_MS = {"K7 window": 0.226, "K8 window": 0.750,
+                         "K7 global": 1.371, "K8 global": 4.993,
+                         "relpos_attn_bwd_dkdv global": 3.24,
+                         "relpos_attn_bwd_dq global": 1.77}
 
 
 def attention_inputs(dev, n_att, grid, seed):
@@ -912,13 +930,39 @@ def attention_inputs(dev, n_att, grid, seed):
     return qkv, rel[0], rel[1]
 
 
+def kernel_device_ms(fn, names, iters: int = 10) -> dict:
+    """Device ms per call of `fn` in the kernels whose names hold each of
+    `names`, from torch.profiler's CUDA activity -> {name: ms, or None
+    where the profiler saw no device time}."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = dict.fromkeys(names, 0.0)
+    for ev in prof.key_averages():
+        total = getattr(ev, "device_time_total", None)
+        if total is None:
+            total = getattr(ev, "cuda_time_total", 0.0)
+        for name in names:
+            if name in ev.key:
+                us[name] += total
+    return {n: (t / iters / 1e3 if t > 0 else None) for n, t in us.items()}
+
+
 def check_relpos_attention(dev, report):
-    """K7 and K8 at the window and global shapes against the plain version
-    in float32 (the truth) and in bf16 (the precision's own error): each
-    output and gradient of the kernels lies no further from float32 than
-    twice the plain bf16 version's, or 1e-3 of its largest value. Times at
-    both shapes; report the global shape's (it dominates), with the plain
-    version's and SDPA's over the materialised bias."""
+    """K7 and K8 at the window, global and ragged shapes against the plain
+    version in float32 (the truth) and in bf16 (the precision's own error):
+    each output and gradient of the kernels lies no further from float32
+    than twice the plain bf16 version's, or 1e-3 of its largest value, and
+    through autograd it is the direct calls' bit for bit. Times at every
+    shape, K8's delta, dK/dV and dQ kernels apart (torch.profiler), each
+    beside its bound; at the timed shapes also the plain version's and
+    SDPA's over the materialised bias. The global shape's (it dominates)
+    is the kernels line's."""
     import torch.nn.functional as F
 
     from dgod_tpu_torch.ops import cuda_attention as K
@@ -971,45 +1015,66 @@ def check_relpos_attention(dev, report):
             qkv, rel_h, rel_w, scale), dev)
         bwd_ms = device_time_ms(lambda: K.relpos_attention_bwd_cuda(
             qkv, rel_h, rel_w, out, lse, g, scale), dev)
-        xs = [qkv.detach().requires_grad_(True), rel_h, rel_w]
-        plain_fwd = device_time_ms(lambda: relpos_attention_plain(
-            *xs, scale), dev, iters=3)
-        plain_out = relpos_attention_plain(*xs, scale)
-        plain_bwd = device_time_ms(lambda: torch.autograd.grad(
-            plain_out, xs[0], g, retain_graph=True), dev, iters=3)
-        del plain_out
-        # SDPA, the library's fused attention, over the bias materialised
-        # in bf16 (a float mask): q, k, v [n_att, heads, N, D]
+        parts = kernel_device_ms(lambda: K.relpos_attention_bwd_cuda(
+            qkv, rel_h, rel_w, out, lse, g, scale), K8_KERNELS)
         kh, kw = grid
-        idx = torch.arange(n, device=dev)
-        bias = (rel_h[..., idx // kw] + rel_w[..., idx % kw]).to(
-            torch.bfloat16)
-        q, k, v = [t.detach().requires_grad_(True)
-                   for t in qkv.permute(2, 0, 3, 1, 4).unbind(0)]
-        lib_fwd = device_time_ms(lambda: F.scaled_dot_product_attention(
-            q, k, v, attn_mask=bias), dev)
-        lib_out = F.scaled_dot_product_attention(q, k, v, attn_mask=bias)
-        gt = g.transpose(1, 2)
-        lib_bwd = device_time_ms(lambda: torch.autograd.grad(
-            lib_out, (q, k, v), gt, retain_graph=True), dev)
-        del lib_out, bias
         att = n_att * HEADS
         rel_bytes = att * n * (kh + kw) * 4
         flops = att * 2.0 * n * n * HEAD_DIM  # one product
         # bound: q, k, v (and the backward's output, its gradient and dq,
         # dk, dv) in bf16, q R_h, q R_w (and their gradients), the
-        # log-sum-exp, against 2 (forward) or 5 (backward) products
+        # log-sum-exp, against 2 (forward) or 5 (backward) products; of
+        # K8's kernels, each against its own products (dK/dV: S^T, dP^T,
+        # dV, dK; dQ: S, dP, dQ) or bytes (delta: O and dO read, delta
+        # written)
         bounds = {
             "K7": max((att * n * (4 * HEAD_DIM * 2 + 4) + rel_bytes)
                       / HBM_BYTES_PER_S, 2 * flops / BF16_FLOPS),
             "K8": max((att * n * (8 * HEAD_DIM * 2 + 4) + 2 * rel_bytes)
-                      / HBM_BYTES_PER_S, 5 * flops / BF16_FLOPS)}
+                      / HBM_BYTES_PER_S, 5 * flops / BF16_FLOPS),
+            "relpos_attn_bwd_delta": att * n * (2 * HEAD_DIM * 2 + 4)
+            / HBM_BYTES_PER_S,
+            "relpos_attn_bwd_dkdv": 4 * flops / BF16_FLOPS,
+            "relpos_attn_bwd_dq": 3 * flops / BF16_FLOPS}
+        plain_fwd = plain_bwd = lib_fwd = lib_bwd = None
+        if name in TIMED:
+            xs = [qkv.detach().requires_grad_(True), rel_h, rel_w]
+            plain_fwd = device_time_ms(lambda: relpos_attention_plain(
+                *xs, scale), dev, iters=3)
+            plain_out = relpos_attention_plain(*xs, scale)
+            plain_bwd = device_time_ms(lambda: torch.autograd.grad(
+                plain_out, xs[0], g, retain_graph=True), dev, iters=3)
+            del plain_out
+            # SDPA, the library's fused attention, over the bias
+            # materialised in bf16 (a float mask): q, k, v [n_att, heads,
+            # N, D]
+            idx = torch.arange(n, device=dev)
+            bias = (rel_h[..., idx // kw] + rel_w[..., idx % kw]).to(
+                torch.bfloat16)
+            q, k, v = [t.detach().requires_grad_(True)
+                       for t in qkv.permute(2, 0, 3, 1, 4).unbind(0)]
+            lib_fwd = device_time_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=bias), dev)
+            lib_out = F.scaled_dot_product_attention(q, k, v, attn_mask=bias)
+            gt = g.transpose(1, 2)
+            lib_bwd = device_time_ms(lambda: torch.autograd.grad(
+                lib_out, (q, k, v), gt, retain_graph=True), dev)
+            del lib_out, bias, q, k, v
         for kid, ms, plain, lib in (("K7", fwd_ms, plain_fwd, lib_fwd),
                                     ("K8", bwd_ms, plain_bwd, lib_bwd)):
             bound = bounds[kid] * 1e3
+            prev = PREVIOUS_ATTENTION_MS.get(f"{kid} {name}")
             print(f"{kid} {name} (B={n_att} N={n}): {ms:.3f} ms, bound "
-                  f"{bound:.3f} ({100 * bound / ms:.1f}%); plain "
-                  f"{plain:.3f}, SDPA {lib:.3f}")
+                  f"{bound:.3f} ({100 * bound / ms:.1f}%)"
+                  + (f"; plain {plain:.3f}, SDPA {lib:.3f}" if plain else "")
+                  + (f"; first design {prev:.3f}" if prev else ""))
+        for kname, ms in parts.items():
+            bound = bounds[kname] * 1e3
+            prev = PREVIOUS_ATTENTION_MS.get(f"{kname} {name}")
+            share = "not measured" if ms is None else \
+                f"{ms:.3f} ms ({100 * bound / ms:.1f}% of {bound:.3f})"
+            print(f"  K8 {name} {kname}: {share}"
+                  + (f"; first design {prev:.3f}" if prev else ""))
         if name == "global":
             report["K7"] = dict(ms=fwd_ms, plain_ms=plain_fwd,
                                 library_ms=lib_fwd, max_abs_err=errs["out"],
@@ -1019,7 +1084,7 @@ def check_relpos_attention(dev, report):
                                 max_abs_err=max(errs["dqkv"], errs["drel_h"],
                                                 errs["drel_w"]),
                                 bound_ms=bounds["K8"] * 1e3)
-        del qkv, rel_h, rel_w, out, lse, g, q, k, v
+        del qkv, rel_h, rel_w, out, lse, g
         torch.cuda.empty_cache()
 
 

@@ -266,6 +266,25 @@ def test_relpos_kernels_take_every_grid_the_wrapper_passes():
         cuda_attention.relpos_attention_cuda(qkv, rel, rel, 0.125)
 
 
+def test_relpos_kernel_names_match_the_benchmark_patterns():
+    """Every `__global__` of K7/K8's source is named so that the
+    benchmark's `perfbench/kernels/K7.py` or `K8.py` PATTERN finds its
+    device time: a kernel renamed by a redesign would move attention time
+    out of `attention_ms.train` unseen."""
+    import re
+
+    from dgod_tpu_torch.ops._build import CSRC
+    from perfbench.kernels import K7, K8
+
+    src = (CSRC / "relpos_attention.cu").read_text()
+    names = re.findall(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?"
+                       r"(\w+)\s*\(", src)
+    assert len(names) >= 4, names
+    for name in names:
+        assert re.search(K7.PATTERN, name) or re.search(K8.PATTERN, name), \
+            name
+
+
 def test_tensor_parallelism_refuses_vitdet(monkeypatch):
     """`shard_model` would split only the heads: it refuses the ViTDet
     model, naming the backbone; a model axis of 1 (data parallelism) takes
